@@ -1,0 +1,56 @@
+"""Core LZ4 compression library of the port — the write path.
+
+Public API:
+    LZ4Engine            — batched compression pipeline (frame out); with
+                           ``device_emit=True`` (default) byte emission stays
+                           on the device and only final frame bytes cross
+                           the host boundary
+    default_engine       — process-wide shared LZ4Engine
+    emit_block           — host-side vectorized (prefix-sum) block emission:
+                           the engine's ``device_emit=False`` path and the
+                           oracle for the device emitter
+    decode_block         — exact LZ4 block decoder (host)
+    encode_frame / decode_frame — self-describing multi-block container
+                           (byte-level spec: docs/frame-format.md)
+    decode_frame_serial  — serial block-walk decoder
+"""
+from .lz4_types import (  # noqa: F401
+    DEFAULT_HASH_BITS,
+    DEFAULT_MAX_MATCH,
+    DEFAULT_PWS,
+    MAX_BLOCK,
+    Sequence,
+    plan_coverage,
+    plan_size,
+)
+from .decoder import decode_block, decode_block_bytewise, LZ4FormatError  # noqa: F401
+from .emitter import emit_block, emit_block_from_records  # noqa: F401
+from .frame import (  # noqa: F401
+    VERSION_V1,
+    VERSION_V2,
+    VERSION_V3,
+    VERSION_V4,
+    VERSION_V5,
+    VERSION_V6,
+    FrameFormatError,
+    block_crc,
+    check_content_crc,
+    decode_frame,
+    decode_frame_serial,
+    encode_frame,
+    frame_info,
+    parity_group_blocks,
+    scan_frame,
+    xor_bytes,
+)
+from .engine import EngineStats, LZ4Engine, default_engine  # noqa: F401
+from .compressor import (  # noqa: F401
+    CANDIDATE_IMPLS,
+    BlockRecords,
+    compress_block_bytes,
+    compress_block_records,
+    compress_blocks_bytes,
+    compress_blocks_records,
+    resolve_candidate_impl,
+)
+from .corpus import corpus_blocks, corpus_files  # noqa: F401

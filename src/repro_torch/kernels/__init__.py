@@ -1,0 +1,15 @@
+"""Hand-written Hopper kernels for the paper's compute hot-spots.
+
+Kernels (CUDA C++ for sm_90a, sources in `../csrc/`):
+  fused_compress  — the single-pass hash -> last-value-table candidate ->
+                    bounded-match datapath of paper Fig. 5;
+  emit_scatter    — device-side byte emission, the write path's last stage;
+  window_select   — the single-match free-pointer scan over the windows.
+
+Layout per kernel: <name>.py (wrapper: checks, launch, launch counter, and
+the plain version re-exported as `<name>_plain`), `../csrc/<name>.cu` (the
+kernel and its C entry point), ref.py (the plain PyTorch versions), ops.py
+(stock torch layout stages + dispatch), _build.py (nvcc -> .so -> ctypes).
+A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
+launches the kernel or raises.
+"""
