@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py [--stop-after build|kernels|path_small]
+    python3 chip_smoke.py [--stop-after build|kernels|small]
 
 Builds the CUDA kernels from `src/repro_torch/csrc/*.cu` (into `build/`),
 holds each against its plain PyTorch version on the card (exact equality —
-every output is an integer or a byte), then drives the port's main path,
-`repro_torch.LZ4Engine(device="cuda").compress`, on 8 MiB and on 256 MiB of
-seeded data, and checks the frames.  Imports `repro_torch` only — never the
-JAX reference.  One JSON line per phase; any failed check raises, so the
-process exits non-zero at once.  Without a CUDA device it exits non-zero
-and prints no result.
+every output is an integer or a byte), then drives the port's two paths:
+the write path, `repro_torch.LZ4Engine(device="cuda").compress`, and the read
+path, `repro_torch.LZ4DecodeEngine(device="cuda")` (`decode`,
+`decode_blocks`, `decode_to_device`, `FrameReader.read_range_device`), on
+8 MiB and on 256 MiB of seeded data, and checks the frames and the bytes.
+Imports `repro_torch` only — never the JAX reference.  One JSON line per
+phase; any failed check raises, so the process exits non-zero at once.
+Without a CUDA device it exits non-zero and prints no result.
 
 The second to last line is ``{"kernels": [...]}`` (per kernel: launches on
 the main path, error against the plain version, time, plain time, bound);
@@ -18,6 +20,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import binascii
 import json
 import subprocess
 import sys
@@ -35,17 +38,33 @@ if not torch.cuda.is_available():
              "script needs one CUDA device and has no CPU fallback")
 
 import repro_torch  # noqa: E402
-from repro_torch import LZ4Engine, decode_frame_serial, frame_info  # noqa: E402
+from repro_torch import (  # noqa: E402
+    FrameReader,
+    FrameFormatError,
+    LZ4DecodeEngine,
+    LZ4Engine,
+    decode_frame_serial,
+    encode_frame,
+    frame_info,
+)
 from repro_torch.core import compressor  # noqa: E402
 from repro_torch.core.compressor import _PAD, OUT_CAP  # noqa: E402
 from repro_torch.core.corpus import adversarial_blocks, corpus_files  # noqa: E402
+from repro_torch.core.decode_plan import (  # noqa: E402
+    DevicePlanCaps,
+    plan_block_fast,
+    to_device_plan,
+)
 from repro_torch.core.decoder import decode_block  # noqa: E402
 from repro_torch.core.emitter import emit_block  # noqa: E402
-from repro_torch.core.frame import check_block  # noqa: E402
+from repro_torch.core.frame import block_crc, check_block  # noqa: E402
 from repro_torch.core.lz4_types import MAX_BLOCK, MIN_MATCH  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import crc32 as k_crc  # noqa: E402
+from repro_torch.kernels import decode_wave as k_wave  # noqa: E402
 from repro_torch.kernels import emit_scatter as k_emit  # noqa: E402
 from repro_torch.kernels import fused_compress as k_fused  # noqa: E402
+from repro_torch.kernels import plan_speculative as k_plan  # noqa: E402
 from repro_torch.kernels import window_select as k_select  # noqa: E402
 
 SEED = 20260731
@@ -56,7 +75,12 @@ SWEEP = [(6, 12, 8), (10, 68, 4), (8, 36, 16), (12, 36, 8)]
 # fp32 rate outside the tensor cores, used here for 32-bit integer operations.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
-KERNEL_MODULES = (k_fused, k_emit, k_select)
+KERNEL_MODULES = (k_fused, k_emit, k_select)           # the write path's
+READ_KERNEL_MODULES = (k_wave, k_plan, k_crc)          # the read path's
+CAPS = DevicePlanCaps()
+ROUND_BUCKETS = (0, 1, 2, 4, 8, 16)
+LONG_CRC_ROW = (64 << 20) + 5   # bytes of the long row the crc32 kernel checks
+TIME_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
 
 
 def say(phase: str, **kw) -> None:
@@ -90,9 +114,61 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def reset_launches() -> None:
-    for mod in KERNEL_MODULES:
+def reset_launches(modules=KERNEL_MODULES) -> None:
+    for mod in modules:
         mod.reset_launches()
+
+
+def launch_counts(modules) -> dict:
+    return {m.__name__.rsplit(".", 1)[1]: m.launches for m in modules}
+
+
+def comparer(modules):
+    """(results, note): ``note(name, *pairs)`` holds each (kernel, plain)
+    output pair equal and tallies cases and the largest difference per
+    kernel in ``results``."""
+    res = {m.__name__.rsplit(".", 1)[1]: {"max_abs_diff": 0, "cases": 0}
+           for m in modules}
+
+    def note(name: str, *pairs) -> None:
+        for a, b in pairs:
+            d = max_abs_diff(a, b)
+            res[name]["max_abs_diff"] = max(res[name]["max_abs_diff"], d)
+            res[name]["cases"] += 1
+            check(d == 0, f"{name}: kernel and plain version differ by {d}")
+
+    return res, note
+
+
+def kernel_device_ms(name: str, fn, iters: int = 20) -> float | str:
+    """Mean device time of one launch of kernel `name` over `iters` calls of
+    `fn`, from the profiler's device rows.  Unlike the CUDA-event time it
+    leaves out the gaps in which the device waits for the host to launch
+    (the wrapper's checks and allocations), which dominate a kernel of a few
+    microseconds."""
+    rep = profile_device(lambda: [fn() for _ in range(iters)])
+    if isinstance(rep, str):
+        return rep
+    rows = [r for r in rep["top"] if f"{name}_kernel" in r["name"]]
+    if not rows:
+        return "not measured (no profiler row for the kernel)"
+    return sum(r["seconds"] for r in rows) * 1e3 / sum(r["count"] for r in rows)
+
+
+def timed(w: dict, name: str | None = None) -> dict:
+    """CUDA-event times of a kernel and its plain version, the kernel's
+    profiler device time when `name` is given, and the bound: bytes over
+    the HBM rate against operations over the 32-bit rate."""
+    byte_ms = w["bytes"] / PEAK_BYTES_PER_S * 1e3
+    op_ms = w["ops"] / PEAK_OPS_PER_S * 1e3
+    out = dict(ms=cuda_ms(w["run"], iters=w.get("iters", 50), warmup=5),
+               plain_ms=cuda_ms(w["plain"], iters=w["plain_iters"], warmup=1),
+               bound_ms=max(byte_ms, op_ms),
+               bound_by="bytes" if byte_ms >= op_ms else "operations",
+               bytes=w["bytes"], operations=w["ops"])
+    if name is not None:
+        out["device_ms"] = kernel_device_ms(name, w["run"])
+    return out
 
 
 # -- data -------------------------------------------------------------------
@@ -199,16 +275,7 @@ def phase_build() -> None:
 def phase_kernels() -> dict:
     """Each kernel against its plain version on the card; times at M = 32
     and the engine defaults.  Returns per-kernel measurements."""
-    res = {m.__name__.rsplit(".", 1)[1]: {"max_abs_diff": 0, "cases": 0}
-           for m in KERNEL_MODULES}
-
-    def note(name: str, *pairs) -> None:
-        for a, b in pairs:
-            d = max_abs_diff(a, b)
-            res[name]["max_abs_diff"] = max(res[name]["max_abs_diff"], d)
-            res[name]["cases"] += 1
-            check(d == 0, f"{name}: kernel and plain version differ by {d}")
-
+    res, note = comparer(KERNEL_MODULES)
     rng = np.random.default_rng(SEED + 2)
     timing_inputs = {}
     for hb, mm, pws in [DEFAULTS] + SWEEP:
@@ -304,17 +371,409 @@ def phase_kernels() -> dict:
             plain_iters=1),
     }
     for name, w in work.items():
-        byte_ms = w["bytes"] / PEAK_BYTES_PER_S * 1e3
-        op_ms = w["ops"] / PEAK_OPS_PER_S * 1e3
-        res[name].update(
-            ms=cuda_ms(w["run"], iters=50, warmup=5),
-            plain_ms=cuda_ms(w["plain"], iters=w["plain_iters"], warmup=1),
-            bound_ms=max(byte_ms, op_ms),
-            bound_by="bytes" if byte_ms >= op_ms else "operations",
-            bytes=w["bytes"], operations=w["ops"])
+        res[name].update(timed(w, name))
     say("kernels_check", shapes=dict(M=M, B=B, P=P, K=K, S=S, W=W),
         tolerance=0, results=res)
     return res
+
+
+# -- the read path ------------------------------------------------------------
+
+def card_payloads(m: int, adversarial: bool = True) -> tuple[list[bytes], list[bytes]]:
+    """m LZ4 payloads compressed on the card (`compress_to_blocks`): every
+    adversarial block (the all-zero one is an RLE chain of depth 65535) on
+    its own, unless ``adversarial`` is off, then 64 KB blocks of the data the
+    main path reads (`seeded_data`).  Returns (payloads, originals)."""
+    eng = LZ4Engine(device=DEV)
+    originals = list(adversarial_blocks().values()) if adversarial else []
+    payloads = [eng.compress_to_blocks(b)[0] for b in originals]
+    fill = seeded_data(2 * m * MAX_BLOCK, SEED + 9)
+    originals += [fill[i: i + MAX_BLOCK] for i in range(0, len(fill), MAX_BLOCK)]
+    payloads += eng.compress_to_blocks(fill)
+    # Incompressible blocks come out longer than `blk_cap`: the engine
+    # decodes those on the host (counted fallback), so they are left out.
+    keep = [j for j, p in enumerate(payloads) if len(p) <= CAPS.blk_cap][:m]
+    check(len(keep) == m, "too few payloads fit blk_cap")
+    return [payloads[j] for j in keep], [originals[j] for j in keep]
+
+
+def stack_rows(rows: list[bytes], width: int, garbage: bool = False, seed: int = 0):
+    """(M, width) uint8 on the card (zeros or seeded noise past each row)
+    and (M,) int32 lengths."""
+    rng = np.random.default_rng(seed)
+    buf = (rng.integers(0, 256, (len(rows), width), np.uint8) if garbage
+           else np.zeros((len(rows), width), np.uint8))
+    ns = np.zeros((len(rows),), np.int32)
+    for j, r in enumerate(rows):
+        buf[j, : len(r)] = np.frombuffer(r, np.uint8)
+        ns[j] = len(r)
+    return torch.from_numpy(buf).to(DEV), torch.from_numpy(ns).to(DEV)
+
+
+def wave_inputs(payloads: list[bytes]):
+    """The decode_wave kernel's inputs for host plans of `payloads`, laid out
+    on the card by the engine's own stage (`ops._decode_layout`)."""
+    plans = [to_device_plan(plan_block_fast(p), CAPS) for p in payloads]
+    blk, _ = stack_rows(payloads, CAPS.blk_cap)
+    col = lambda f: torch.from_numpy(np.stack([getattr(d, f) for d in plans])).to(DEV)  # noqa: E731
+    sc = lambda f: torch.tensor([getattr(d, f) for d in plans], dtype=torch.int32, device=DEV)  # noqa: E731
+    total = sc("out_size")
+    lit_blk, ptr = ops._decode_layout(
+        col("lit_src"), col("lit_dst"), col("lit_len"), col("match_dst"),
+        col("match_off"), sc("n_lit"), sc("n_match"), total, CAPS.out_cap)
+    return blk, lit_blk, ptr, total, max(d.n_waves for d in plans)
+
+
+def spec_rows(payloads: list[bytes]) -> list[bytes]:
+    """Rows for the header kernel: valid payloads, truncations, interior
+    flips, a block of 0xFF bytes, and n in {0, 1, 2, blk_cap}."""
+    rng = np.random.default_rng(SEED + 6)
+    rows = list(payloads)
+    for p in payloads[:6]:
+        rows += [p[: len(p) // 3], p[: max(len(p) - 1, 0)]]
+    for p in payloads[-4:]:
+        for _ in range(3):
+            m = bytearray(p)
+            if m:
+                m[int(rng.integers(0, len(m)))] = int(rng.integers(0, 256))
+            rows.append(bytes(m))
+    noise = rng.integers(0, 256, CAPS.blk_cap, np.uint8).tobytes()
+    rows += [b"\xff" * CAPS.blk_cap, b"", noise[:1], noise[:2], noise]
+    return rows
+
+
+def phase_decode_kernels() -> dict:
+    """The read path's kernels against their plain versions on the card,
+    exact; times at M = 8 (the engine's micro-batch) and M = 64."""
+    res, note = comparer(READ_KERNEL_MODULES)
+
+    payloads, originals = card_payloads(64)
+    # decode_wave: every round bucket, on the engine's layout of host plans
+    blk, lit_blk, ptr, total, depth = wave_inputs(payloads[:32])
+    for rounds in ROUND_BUCKETS:
+        out = k_wave.decode_wave(blk, lit_blk, ptr, total, rounds)
+        torch.cuda.synchronize()
+        note("decode_wave", (out, k_wave.decode_wave_plain(blk, lit_blk, ptr, total, rounds)))
+        if rounds >= depth:
+            host = out.cpu().numpy()
+            for j, o in enumerate(originals[:32]):
+                check(host[j, : len(o)].tobytes() == o, f"decode_wave row {j} != input")
+    # ... and on random maps with lit_blk out of range within total
+    rng = np.random.default_rng(SEED + 7)
+    K = CAPS.out_cap
+    g_lit = torch.from_numpy(rng.integers(-2 * CAPS.blk_cap, 2 * CAPS.blk_cap,
+                                          (8, K)).astype(np.int32)).to(DEV)
+    g_ptr = torch.from_numpy(rng.integers(0, K, (8, K)).astype(np.int32)).to(DEV)
+    g_tot = torch.from_numpy(rng.integers(0, K + 1, 8).astype(np.int32)).to(DEV)
+    for rounds in (1, 16):
+        out = k_wave.decode_wave(blk[:8], g_lit, g_ptr, g_tot, rounds)
+        torch.cuda.synchronize()
+        note("decode_wave", (out, k_wave.decode_wave_plain(blk[:8], g_lit, g_ptr, g_tot, rounds)))
+
+    # plan_speculative: valid, truncated, flipped, 0xFF runs, tiny n; zeros
+    # and noise past n
+    rows = spec_rows(payloads[:32])
+    for garbage in (False, True):
+        sb, sn = stack_rows(rows, CAPS.blk_cap + ops.SPEC_PAD, garbage, SEED + 8)
+        got = k_plan.plan_speculative(sb, sn)
+        torch.cuda.synchronize()
+        note("plan_speculative", *zip(got, k_plan.plan_speculative_plain(sb, sn)))
+    # the fused plan + decode + CRC of the engine, card against CPU
+    mo = torch.full((len(rows),), MAX_BLOCK, dtype=torch.int32, device=DEV)
+    kw = dict(out_cap=CAPS.out_cap, max_lit=CAPS.max_lit,
+              max_match=CAPS.max_match, rounds=16, compute_crc=True)
+    on_card = ops.plan_decode(sb, sn, mo, **kw)
+    on_cpu = ops.plan_decode(sb.cpu(), sn.cpu(), mo.cpu(), **kw)
+    for a, b in zip(on_card, on_cpu):
+        check(torch.equal(a.cpu(), b), "plan_decode on the card != on the CPU")
+
+    # crc32: ragged rows and one long row, also against binascii
+    data = rng.integers(0, 256, (7, MAX_BLOCK), np.uint8)
+    ns = np.array([0, 1, 7, 8, 9, 65535, 65536], np.int32)
+    d_dev, n_dev = torch.from_numpy(data).to(DEV), torch.from_numpy(ns).to(DEV)
+    got = k_crc.crc32(d_dev, n_dev)
+    torch.cuda.synchronize()
+    note("crc32", (got, k_crc.crc32_plain(d_dev, n_dev)))
+    check(got.tolist() == [binascii.crc32(data[j, : ns[j]].tobytes()) for j in range(7)],
+          "crc32 != binascii.crc32")
+    long_row = rng.integers(0, 256, LONG_CRC_ROW, np.uint8)
+    lr_dev = torch.from_numpy(long_row).to(DEV)[None]
+    for n in (long_row.size, long_row.size - 3):
+        n_t = torch.tensor([n], dtype=torch.int32, device=DEV)
+        got = k_crc.crc32(lr_dev, n_t)
+        torch.cuda.synchronize()
+        note("crc32", (got, k_crc.crc32_plain(lr_dev, n_t)))
+        check(int(got[0]) == binascii.crc32(long_row[:n].tobytes()),
+              f"crc32 of a {n}-byte row != binascii.crc32")
+
+    # -- times at M = 8 and M = 64, on blocks of the main path's data --------
+    main_like, _ = card_payloads(64, adversarial=False)
+    timing = {}
+    for M in (8, 64):
+        blk, lit_blk, ptr, total, depth = wave_inputs(main_like[:M])
+        sb, sn = stack_rows(main_like[:M], CAPS.blk_cap + ops.SPEC_PAD)
+        rows_u8 = k_wave.decode_wave(blk, lit_blk, ptr, total, 16)
+        B, K, Bs = CAPS.blk_cap, CAPS.out_cap, CAPS.blk_cap + ops.SPEC_PAD
+        used = int(total.sum())
+        work = {
+            # bytes: each input read once, each output written once;
+            # operations: the doubling rounds these blocks need (`depth`).
+            "decode_wave": dict(
+                bytes=M * B + 2 * 4 * M * K + 4 * M + M * K,
+                ops=M * K * (2 * depth + 4),
+                run=lambda: k_wave.decode_wave(blk, lit_blk, ptr, total, 16),
+                plain=lambda: k_wave.decode_wave_plain(blk, lit_blk, ptr, total, 16),
+                plain_iters=3),
+            "plan_speculative": dict(
+                bytes=M * Bs + 4 * M + 7 * 4 * M * Bs,
+                ops=M * Bs * (40 + 16 * 4),
+                run=lambda: k_plan.plan_speculative(sb, sn),
+                plain=lambda: k_plan.plan_speculative_plain(sb, sn),
+                plain_iters=3),
+            "crc32": dict(
+                bytes=used + 4 * M + 8 * M,
+                ops=2 * used,
+                run=lambda: k_crc.crc32(rows_u8, total),
+                plain=lambda: k_crc.crc32_plain(rows_u8, total),
+                plain_iters=3),
+        }
+        timing[M] = {name: timed(w, name) for name, w in work.items()}
+        timing[M]["decode_wave"]["depth_needed"] = depth
+    lr = torch.tensor([long_row.size], dtype=torch.int32, device=DEV)
+    crc_long = timed(dict(bytes=long_row.size + 12, ops=2 * long_row.size,
+                          run=lambda: k_crc.crc32(lr_dev, lr),
+                          plain=lambda: k_crc.crc32_plain(lr_dev, lr),
+                          plain_iters=1, iters=10), "crc32")
+    for name in res:
+        res[name].update(timing[8][name])
+    say("decode_kernels_check", tolerance=0, results=res,
+        times_M64={k: {f: v[f] for f in TIME_KEYS} for k, v in timing[64].items()},
+        crc32_long_row=dict(bytes=long_row.size, **{f: crc_long[f] for f in TIME_KEYS}),
+        shapes=dict(B=CAPS.blk_cap, B_spec=CAPS.blk_cap + ops.SPEC_PAD,
+                    K=CAPS.out_cap, rows_spec=len(rows)))
+    return res
+
+
+def with_trailer(frame: bytes, data: bytes) -> bytes:
+    """The same blocks as a frame with the whole-object CRC trailer (v5)."""
+    blocks = frame_info(frame)["blocks"]
+    return encode_frame(
+        [frame[b["offset"]: b["offset"] + b["csize"]] for b in blocks],
+        [b["usize"] for b in blocks], [b["raw"] for b in blocks],
+        checksums=[b["crc"] for b in blocks], content_crc=block_crc(data))
+
+
+def phase_read_small() -> None:
+    """8 MiB through `LZ4DecodeEngine(device="cuda")`, host planning and
+    on-device planning, every entry point: bytes == input, `DecodeStats`
+    == the CPU plain-version engine's, and a flipped payload byte raises the
+    CPU engine's message; also the frame rebuilt with the whole-object
+    trailer (v5), whose CRC over the joined tensor runs on the device."""
+    data = seeded_data(8 << 20, SEED + 5)
+    frame = LZ4Engine(device=DEV).compress(data)
+    info = frame_info(frame)
+    blocks = info["blocks"]
+    payloads = [frame[b["offset"]: b["offset"] + b["csize"]] for b in blocks]
+    raws = [b["raw"] for b in blocks]
+    usizes = [b["usize"] for b in blocks]
+    lo, hi = MAX_BLOCK - 100, 3 * MAX_BLOCK
+    victim = next(i for i, b in enumerate(blocks) if not b["raw"])
+    mutant = bytearray(frame)
+    mutant[blocks[victim]["offset"] + blocks[victim]["csize"] // 2] ^= 0x40
+    v5 = with_trailer(frame, data)
+    bad_trailer = bytearray(v5)
+    bad_trailer[-1] ^= 0x01
+    report = []
+    for pod in (False, True):
+        stats = {}
+        for key, dev in (("card", DEV), ("cpu", torch.device("cpu"))):
+            eng = LZ4DecodeEngine(device=dev, plan_on_device=pod)
+            st = stats[key] = {}
+            check(eng.decode(frame) == data, f"decode ({dev}, {pod})")
+            st["decode"] = eng.stats.as_dict()
+            out = eng.decode_blocks(payloads, raws, usizes=usizes)
+            check(b"".join(out) == data, f"decode_blocks ({dev}, {pod})")
+            st["decode_blocks"] = eng.stats.as_dict()
+            t = eng.decode_to_device(frame, verify=True)
+            # torch.device("cuda") != torch.device("cuda:0"): compare types
+            check(t.device.type == dev.type,
+                  f"decode_to_device ({dev}, {pod}) returned a {t.device} tensor")
+            check(t.cpu().numpy().tobytes() == data,
+                  f"decode_to_device ({dev}, {pod}): bytes differ")
+            check(eng.stats.host_bytes == 0, "decode_to_device fetched content")
+            st["decode_to_device"] = eng.stats.as_dict()
+            # with the whole-object trailer, checked on the device
+            check(eng.decode_to_device(v5).cpu().numpy().tobytes() == data,
+                  f"decode_to_device of the v5 frame ({dev}, {pod})")
+            st["decode_to_device_v5"] = eng.stats.as_dict()
+            r = FrameReader(frame, engine=eng).read_range_device(lo, hi - lo)
+            check(r.cpu().numpy().tobytes() == data[lo:hi], "read_range_device")
+            errors = []
+            for call, bad in ((eng.decode, mutant), (eng.decode_to_device, mutant),
+                              (eng.decode_to_device, bad_trailer)):
+                try:
+                    call(bytes(bad))
+                    errors.append(None)
+                except FrameFormatError as e:
+                    errors.append(str(e))
+            check(all(errors), f"a flipped payload or trailer byte decoded ({dev}, {pod})")
+            st["errors"] = errors
+        check(stats["card"] == stats["cpu"],
+              f"card and CPU engines differ (plan_on_device={pod}): {stats}")
+        report.append(dict(plan_on_device=pod, stats=stats["card"]))
+    say("read_small", bytes=len(data), frame_bytes=len(frame),
+        blocks=len(blocks), raw_blocks=sum(raws), equal_to_cpu=True,
+        runs=report)
+
+
+def phase_read_full(frame: bytes, data: bytes) -> dict:
+    """The read path at full size: the 256 MiB frame of `path_full` through
+    `LZ4DecodeEngine(device="cuda", plan_on_device=True)` at micro-batch 8
+    (the default: THE read path, whose launch counts are returned) and 64,
+    the same blocks as a v5 frame (whole-object trailer), then the
+    host-planned device path at 32 MiB."""
+    data_dev = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(DEV)
+    info = frame_info(frame)
+    coded = sum(b["usize"] for b in info["blocks"] if not b["raw"])
+    LZ4DecodeEngine(device=DEV, plan_on_device=True).decode_to_device(frame)
+    runs, main = [], None
+
+    def one(eng, method, frame, want_dev, want_host, coded):
+        reset_launches(READ_KERNEL_MODULES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = getattr(eng, method)(frame)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launch_counts(READ_KERNEL_MODULES)
+        st = eng.stats
+        if method == "decode_to_device":
+            check(torch.equal(out, want_dev), "decode_to_device bytes differ")
+            check(st.host_bytes == 0, "decode_to_device fetched content")
+        else:
+            check(out == want_host, "decode bytes differ")
+            check(st.host_bytes == coded, "host_bytes != decoded coded blocks")
+        check(st.fallback_blocks == 0, "a block fell back to the host")
+        return dt, launches, st
+
+    for mb in (8, 64):
+        eng = LZ4DecodeEngine(device=DEV, plan_on_device=True, micro_batch=mb)
+        for method in ("decode_to_device", "decode"):
+            dt, launches, st = one(eng, method, frame, data_dev, data, coded)
+            want = dict(decode_wave=st.dispatches, plan_speculative=st.dispatches,
+                        crc32=st.dispatches if method == "decode_to_device" else 0)
+            check(launches == want, f"{method} mb={mb}: launches {launches} "
+                  f"for {st.dispatches} dispatches")
+            if mb == 8 and method == "decode_to_device":
+                main = launches
+            runs.append(dict(plan_on_device=True, micro_batch=mb, method=method,
+                             seconds=dt, output_GB_per_s=len(data) / dt / 1e9,
+                             blocks_per_s=st.blocks / dt,
+                             host_bytes=st.host_bytes,
+                             host_bytes_per_output_byte=st.host_bytes / len(data),
+                             fallback_blocks=st.fallback_blocks,
+                             stats=st.as_dict(), launches=launches))
+    # The same blocks with the whole-object trailer: one more crc32 launch,
+    # over the joined 256 MiB tensor.
+    eng = LZ4DecodeEngine(device=DEV, plan_on_device=True)
+    dt, launches, st = one(eng, "decode_to_device", with_trailer(frame, data),
+                           data_dev, data, coded)
+    check(launches == dict(decode_wave=st.dispatches, plan_speculative=st.dispatches,
+                           crc32=st.dispatches + 1),
+          f"v5 decode_to_device: launches {launches} for {st.dispatches} dispatches")
+    runs.append(dict(plan_on_device=True, micro_batch=8, method="decode_to_device",
+                     trailer=True, seconds=dt, output_GB_per_s=len(data) / dt / 1e9,
+                     blocks_per_s=st.blocks / dt, host_bytes=st.host_bytes,
+                     host_bytes_per_output_byte=st.host_bytes / len(data),
+                     fallback_blocks=st.fallback_blocks, stats=st.as_dict(),
+                     launches=launches))
+    small = data[: 32 << 20]
+    small_frame = LZ4Engine(device=DEV).compress(small)
+    s_coded = sum(b["usize"] for b in frame_info(small_frame)["blocks"] if not b["raw"])
+    eng = LZ4DecodeEngine(device=DEV)
+    for method in ("decode_to_device", "decode"):
+        dt, launches, st = one(eng, method, small_frame, data_dev[: len(small)],
+                               small, s_coded)
+        want = dict(decode_wave=st.dispatches, plan_speculative=0,
+                    crc32=st.dispatches if method == "decode_to_device" else 0)
+        check(launches == want, f"host-planned {method}: launches {launches}")
+        runs.append(dict(plan_on_device=False, micro_batch=8, method=method,
+                         seconds=dt, output_GB_per_s=len(small) / dt / 1e9,
+                         blocks_per_s=st.blocks / dt, host_bytes=st.host_bytes,
+                         host_bytes_per_output_byte=st.host_bytes / len(small),
+                         fallback_blocks=st.fallback_blocks,
+                         stats=st.as_dict(), launches=launches))
+    say("read_full", bytes=len(data), frame_bytes=len(frame),
+        blocks=len(info["blocks"]), runs=runs,
+        peak_device_MiB=torch.cuda.max_memory_allocated() / 2**20)
+    return main
+
+
+def profile_device(fn) -> dict | str:
+    """Device busy time and idle share of one call of `fn` under
+    torch.profiler (device-side rows only)."""
+    try:  # the profiler is an extra: a card it cannot trace is reported, not fatal
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        rows = []
+        for ev in prof.key_averages():
+            # Device-side rows only: an operator's row repeats the time of
+            # the kernels it launched.
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0)
+            if us > 0:
+                rows.append((ev.key, us / 1e6, ev.count))
+        busy = sum(r[1] for r in rows)
+        if busy <= 0:
+            return "not measured (the profiler saw no device time)"
+        rows.sort(key=lambda r: -r[1])
+        return dict(wall_seconds_under_profiler=prof_wall, busy_seconds=busy,
+                    idle_share=1 - busy / prof_wall,
+                    top=[dict(name=k[:60], seconds=t, count=c) for k, t, c in rows[:12]])
+    except Exception as e:  # noqa: BLE001
+        return f"not measured ({type(e).__name__}: {e})"
+
+
+def span_table(fn) -> tuple[dict, float]:
+    """The engine's own spans over one call of `fn` (telemetry on)."""
+    from repro_torch import obs
+
+    obs.reset()
+    obs.configure(nvtx=True)   # every span also pushes/pops an NVTX range
+    check(obs.tracer()._nvtx_module() is not None, "NVTX bridge did not arm")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    obs.configure(nvtx=False)
+    spans: dict[str, list[float]] = {}
+    for r in obs.tracer().finished():
+        spans.setdefault(r["name"], []).append(r["dur_ns"] / 1e9)
+    obs.reset()
+    return {k: dict(count=len(v), seconds=sum(v)) for k, v in sorted(spans.items())}, wall
+
+
+def phase_read_breakdown(data: bytes) -> None:
+    """Where the read path's wall time goes: spans of one
+    `decode_to_device(verify=True)` (plan_on_device, micro-batch 8) over a
+    64 MiB frame, and the device's idle share under the profiler."""
+    frame = LZ4Engine(device=DEV).compress(data)
+    eng = LZ4DecodeEngine(device=DEV, plan_on_device=True, telemetry=True)
+    table, wall = span_table(lambda: eng.decode_to_device(frame))
+    plain = LZ4DecodeEngine(device=DEV, plan_on_device=True)
+    device = profile_device(lambda: plain.decode_to_device(frame))
+    say("read_breakdown", bytes_out=len(data), frame_bytes=len(frame),
+        micro_batch=8, wall_seconds=wall, spans=table, device=device)
 
 
 def phase_path_small() -> None:
@@ -327,7 +786,7 @@ def phase_path_small() -> None:
     for device_emit in (True, False):
         for drain in ("sliced", "full"):
             for scan_impl in ("sequential", "associative"):
-                eng = LZ4Engine(device="cuda", device_emit=device_emit,
+                eng = LZ4Engine(device=DEV, device_emit=device_emit,
                                 drain=drain, scan_impl=scan_impl)
                 frame = eng.compress(data)
                 check(frame == ref_frame,
@@ -368,14 +827,14 @@ def verify_frame(frame: bytes, data: bytes, sample: int, seed: int) -> dict:
 def phase_path_full(data: bytes, micro_batch: int) -> dict:
     """The main path at full size.  Counts are zeroed just before and read
     just after; each dispatch must have launched each kernel once."""
-    eng = LZ4Engine(device="cuda", micro_batch=micro_batch)
+    eng = LZ4Engine(device=DEV, micro_batch=micro_batch)
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     frame = eng.compress(data)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in KERNEL_MODULES}
+    launches = launch_counts(KERNEL_MODULES)
     st = eng.stats
     for name, n in launches.items():
         check(n == st.dispatches and n > 0,
@@ -389,69 +848,24 @@ def phase_path_full(data: bytes, micro_batch: int) -> dict:
         host_bytes_per_input_byte=st.host_bytes / len(data),
         stats=st.as_dict(), launches=launches, verified=verified,
         peak_device_MiB=torch.cuda.max_memory_allocated() / 2**20)
-    return launches
+    return launches, frame
 
 
 def phase_breakdown(data: bytes) -> None:
-    """Where the main path's wall time goes: the engine's own spans
+    """Where the write path's wall time goes: the engine's own spans
     (telemetry on) over one call, and — where the profiler can trace the
     card — the share of the wall time the device was busy."""
-    from repro_torch import obs
-
-    obs.reset()
-    obs.configure(nvtx=True)   # every span also pushes/pops an NVTX range
-    check(obs.tracer()._nvtx_module() is not None, "NVTX bridge did not arm")
-    eng = LZ4Engine(device="cuda", telemetry=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.compress(data)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    obs.configure(nvtx=False)
-    spans: dict[str, list[float]] = {}
-    for r in obs.tracer().finished():
-        spans.setdefault(r["name"], []).append(r["dur_ns"] / 1e9)
-    obs.reset()
-    table = {k: dict(count=len(v), seconds=sum(v)) for k, v in sorted(spans.items())}
-
-    device = "not measured"
-    try:  # the profiler is an extra: a card it cannot trace is reported, not fatal
-        from torch.profiler import ProfilerActivity, profile
-
-        eng = LZ4Engine(device="cuda")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            eng.compress(data)
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-        rows = []
-        for ev in prof.key_averages():
-            # Device-side rows only: an operator's row repeats the time of
-            # the kernels it launched.
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = getattr(ev, "self_cuda_time_total", 0)
-            if us > 0:
-                rows.append((ev.key, us / 1e6, ev.count))
-        busy = sum(r[1] for r in rows)
-        if busy > 0:
-            rows.sort(key=lambda r: -r[1])
-            device = dict(
-                wall_seconds_under_profiler=prof_wall, busy_seconds=busy,
-                idle_share=1 - busy / prof_wall,
-                top=[dict(name=k[:60], seconds=t, count=c) for k, t, c in rows[:12]])
-    except Exception as e:  # noqa: BLE001
-        device = f"not measured ({type(e).__name__}: {e})"
+    eng = LZ4Engine(device=DEV, telemetry=True)
+    table, wall = span_table(lambda: eng.compress(data))
+    plain = LZ4Engine(device=DEV)
+    device = profile_device(lambda: plain.compress(data))
     say("breakdown", bytes_in=len(data), micro_batch=32, wall_seconds=wall,
         spans=table, device=device)
 
 
 def main() -> None:
-    # Bring-up aid: `--stop-after build|kernels|path_small` ends the run
-    # early (exit 0, no result lines).  With no arguments the whole run.
+    # Bring-up aid: `--stop-after build|kernels|small` ends the run early
+    # (exit 0, no result lines).  With no arguments the whole run.
     stop_after = sys.argv[2] if sys.argv[1:2] == ["--stop-after"] else None
     t_start = time.perf_counter()
     card = phase_env()
@@ -459,24 +873,25 @@ def main() -> None:
     if stop_after == "build":
         return
     measured = phase_kernels()
+    measured.update(phase_decode_kernels())
     if stop_after == "kernels":
         return
     phase_path_small()
-    if stop_after == "path_small":
+    phase_read_small()
+    if stop_after == "small":
         return
     t0 = time.perf_counter()
     data = seeded_data(256 << 20, SEED + 4)
     say("data", bytes=len(data), seconds=round(time.perf_counter() - t0, 3))
     # One unmeasured pass over the full data first: it pays the one-off costs
     # (first touch of the host heap, growth of the device allocator), which
-    # would otherwise land on whichever measured pass runs first.  Then the
-    # two batch sizes in turns: 32, 256, 256, 32.
-    LZ4Engine(device="cuda").compress(data)
-    launches = phase_path_full(data, micro_batch=32)      # THE main path
+    # would otherwise land on whichever measured pass runs first.
+    LZ4Engine(device=DEV).compress(data)
+    launches, frame = phase_path_full(data, micro_batch=32)   # THE write path
     phase_path_full(data, micro_batch=256)
-    phase_path_full(data, micro_batch=256)
-    phase_path_full(data, micro_batch=32)
+    launches.update(phase_read_full(frame, data))             # THE read path
     phase_breakdown(data[: 64 << 20])
+    phase_read_breakdown(data[: 64 << 20])
     say("done", seconds=round(time.perf_counter() - t_start, 3))
 
     replaces = {
@@ -484,6 +899,10 @@ def main() -> None:
         "emit_scatter": "src/repro/kernels/emit_scatter.py:99",
         # no TPU kernel: the lax.scan graph stage _select_sequential
         "window_select": "src/repro/core/jax_compressor.py:196",
+        "decode_wave": "src/repro/kernels/decode_wave.py:64",
+        "plan_speculative": "src/repro/kernels/plan_speculative.py:124",
+        # no TPU kernel: the lax.scan graph stage crc32_bytes
+        "crc32": "src/repro/kernels/ops.py:455",
     }
     kernels = []
     for name, m in measured.items():
@@ -492,7 +911,8 @@ def main() -> None:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": m["max_abs_diff"], "max_abs_diff": m["max_abs_diff"],
-            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "ms": m["ms"], "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
         })
     print(card, flush=True)

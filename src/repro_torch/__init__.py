@@ -6,11 +6,14 @@ for a TPU is a hand-written CUDA kernel here (`csrc/*.cu`, built at first use
 by `kernels/_build.py`).  The package imports `torch`, `numpy` and the
 standard library only — never `jax`, never anything of `repro`.
 
-Ported so far: the write path, `core.engine.LZ4Engine.compress` -> frame.
+Ported so far: the write path, `core.engine.LZ4Engine.compress` -> frame,
+and the read path, `core.decode_engine.LZ4DecodeEngine` (frame -> bytes on
+the host or a uint8 tensor on the card, `FrameReader` for random access).
 
-    from repro_torch import LZ4Engine
+    from repro_torch import LZ4Engine, LZ4DecodeEngine
     frame = LZ4Engine().compress(data)              # on the card
     frame = LZ4Engine(device="cpu").compress(data)  # kernels' plain versions
+    dev = LZ4DecodeEngine(plan_on_device=True).decode_to_device(frame)
 
 Entry points run on the card unless the caller asks for the CPU.
 """
@@ -20,6 +23,12 @@ import shutil
 
 import torch
 
+from .core.decode_engine import (  # noqa: F401
+    DecodeStats,
+    FrameReader,
+    LZ4DecodeEngine,
+    default_decode_engine,
+)
 from .core.engine import EngineStats, LZ4Engine, default_engine  # noqa: F401
 from .core.frame import (  # noqa: F401
     FrameFormatError,
@@ -30,7 +39,8 @@ from .core.frame import (  # noqa: F401
 )
 
 __all__ = [
-    "LZ4Engine", "EngineStats", "default_engine", "FrameFormatError",
+    "LZ4Engine", "EngineStats", "default_engine", "LZ4DecodeEngine",
+    "DecodeStats", "FrameReader", "default_decode_engine", "FrameFormatError",
     "decode_frame", "decode_frame_serial", "encode_frame", "frame_info",
     "probe",
 ]

@@ -1,8 +1,9 @@
 """State carried between the JAX reference and this package, as numpy.
 
-The write path has no model parameters.  What crosses between the packages
+The system has no model parameters.  What crosses between the packages
 (in the tests) is configuration and intermediate state: per-window match
-records, the emit layout, and engine keywords.  With these helpers a test
+records, the emit layout, and the keywords of both engines
+(`engine_config`, `decode_engine_config`).  With these helpers a test
 can feed the reference's output of one stage into this package's next stage
 and localize a mismatch.  Nothing here imports the reference.
 """
@@ -72,5 +73,31 @@ def engine_config(**kw) -> dict:
                     f"{k}= selects the sharded fabric, which repro_torch "
                     "does not have yet")
             continue
+        out[k] = v
+    return out
+
+
+def decode_engine_config(**kw) -> dict:
+    """Map the reference `LZ4DecodeEngine` keywords onto this package's.
+
+    ``use_pallas`` is dropped (there is one kernel route); ``mesh`` /
+    ``shard_axes`` are refused unless None (the sharded fabric, ROADMAP A8)
+    and ``on_error="salvage"`` is refused (the salvage pass, ROADMAP A6).
+    Everything else passes through; the caller adds ``device=``.
+    """
+    out = {}
+    for k, v in kw.items():
+        if k == "use_pallas":
+            continue
+        if k in ("mesh", "shard_axes"):
+            if v is not None:
+                raise NotImplementedError(
+                    f"{k}= selects the sharded fabric, which repro_torch "
+                    "does not have yet (ROADMAP queue A, item A8)")
+            continue
+        if k == "on_error" and v == "salvage":
+            raise NotImplementedError(
+                'on_error="salvage" needs the salvage pass, which '
+                "repro_torch does not have yet (ROADMAP queue A, item A6)")
         out[k] = v
     return out

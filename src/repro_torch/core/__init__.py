@@ -1,4 +1,4 @@
-"""Core LZ4 compression library of the port — the write path.
+"""Core LZ4 library of the port — the write path and the read path.
 
 Public API:
     LZ4Engine            — batched compression pipeline (frame out); with
@@ -12,7 +12,13 @@ Public API:
     decode_block         — exact LZ4 block decoder (host)
     encode_frame / decode_frame — self-describing multi-block container
                            (byte-level spec: docs/frame-format.md)
-    decode_frame_serial  — serial block-walk decoder
+    decode_frame_serial  — serial block-walk decoder (the oracle)
+    LZ4DecodeEngine      — two-phase frame decoder; the device executor
+                           (default, on the card) plans on the host or, with
+                           ``plan_on_device=True``, on the device, and
+                           `decode_to_device` keeps the plaintext there
+    DecodeStats          — its per-call / lifetime counters
+    FrameReader          — random access through the frame's block table
 """
 from .lz4_types import (  # noqa: F401
     DEFAULT_HASH_BITS,
@@ -54,3 +60,22 @@ from .compressor import (  # noqa: F401
     resolve_candidate_impl,
 )
 from .corpus import corpus_blocks, corpus_files  # noqa: F401
+from .decode_plan import (  # noqa: F401
+    BlockPlan,
+    DevicePlan,
+    DevicePlanCaps,
+    DevicePlanOverflow,
+    MAX_RESOLVE_ROUNDS,
+    decode_block_planned,
+    execute_device_plan,
+    execute_plan,
+    plan_block,
+    plan_block_fast,
+    to_device_plan,
+)
+from .decode_engine import (  # noqa: F401
+    DecodeStats,
+    FrameReader,
+    LZ4DecodeEngine,
+    default_decode_engine,
+)

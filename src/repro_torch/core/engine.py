@@ -55,7 +55,7 @@ from .compressor import (
     resolve_candidate_impl,
 )
 from .emitter import emit_block
-from .frame import block_crc, decode_frame, encode_frame
+from .frame import block_crc, encode_frame
 from .lz4_types import (
     DEFAULT_HASH_BITS,
     DEFAULT_MAX_MATCH,
@@ -73,11 +73,11 @@ def default_engine() -> "LZ4Engine":
     return LZ4Engine()
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_device(device, what: str = "LZ4Engine") -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "LZ4Engine runs on a CUDA device by default and "
+                f"{what} runs on a CUDA device by default and "
                 "torch.cuda.is_available() is False; pass device=\"cpu\" to "
                 "run the plain PyTorch versions of the kernels on the CPU")
         return torch.device("cuda")
@@ -243,6 +243,11 @@ class LZ4Engine:
         # never lose updates.  `stats` stays a last-call-wins pointer.
         self._totals_lock = threading.Lock()
         self._sp = obs.span_factory(False)  # refreshed per call
+        # `decompress` decodes where the engine compresses: a decode engine
+        # (device executor) on the same device, owned by this engine.
+        from .decode_engine import LZ4DecodeEngine  # local: engine <-> decoder
+
+        self.decoder = LZ4DecodeEngine(device=self.device)
 
     def _obs_on(self) -> bool:
         return obs.enabled_for(self.telemetry)
@@ -453,5 +458,5 @@ class LZ4Engine:
 
     def decompress(self, frame: bytes) -> bytes:
         """Inverse of `compress`; validates the frame (sizes + checksums)
-        throughout."""
-        return decode_frame(frame)
+        throughout.  Decodes on the engine's device (`self.decoder`)."""
+        return self.decoder.decode(frame)

@@ -640,11 +640,15 @@ def check_content_crc(expected: int | None, crc: int) -> None:
 def decode_frame(frame: bytes) -> bytes:
     """Frame -> original bytes; raises FrameFormatError on any malformation.
 
-    The serial block walk (`decode_frame_serial`) is the only decoder this
-    package has so far; once the parallel decode engine exists here this
-    entry point delegates to it and the serial walk stays as its oracle.
+    Delegates to the process-wide `LZ4DecodeEngine` (the device executor,
+    on the card; it raises where no CUDA device is available — pass frames
+    to ``LZ4DecodeEngine(device="cpu").decode`` there).  The serial block
+    walk survives as `decode_frame_serial`, the oracle the engine is tested
+    against.
     """
-    return decode_frame_serial(frame)
+    from .decode_engine import default_decode_engine  # local: frame <-> engine
+
+    return default_decode_engine().decode(frame)
 
 
 def decode_frame_serial(frame: bytes, bytewise: bool = False) -> bytes:

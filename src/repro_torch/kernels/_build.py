@@ -22,11 +22,16 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNEL_SOURCES = ("fused_compress", "emit_scatter", "window_select")
+KERNEL_SOURCES = ("fused_compress", "emit_scatter", "window_select",
+                  "decode_wave", "plan_speculative", "crc32")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# Dynamic shared memory one CTA may use on Hopper (227 KB, after
+# cudaFuncSetAttribute); the wrappers check their kernels' needs against it.
+SMEM_PER_CTA = 232448
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

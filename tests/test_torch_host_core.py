@@ -13,6 +13,7 @@ from repro_torch.core import emitter as temit
 from repro_torch.core import frame as tframe
 from repro_torch.core import lz4_types as ttypes
 from repro_torch.core.corpus import corpus_blocks, corpus_files
+from repro_torch.core.decode_engine import LZ4DecodeEngine
 from repro_torch.resilience.errors import FrameError
 
 from test_torch_util import MAX_BLOCK, rng
@@ -63,7 +64,8 @@ def test_encode_frame_bytes_equal_and_cross_decode(version):
     assert tframe.decode_frame_serial(f_j) == data
     assert jframe.decode_frame_serial(f_t) == data
     assert tframe.decode_frame_serial(f_j, bytewise=True) == data
-    assert tframe.decode_frame(f_j) == data   # serial in this package for now
+    # The port's decode engine (device executor, plain versions on the CPU).
+    assert LZ4DecodeEngine(device="cpu").decode(f_j) == data
 
 
 def test_constants_and_size_helpers_equal():

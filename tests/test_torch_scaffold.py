@@ -47,7 +47,11 @@ def test_every_module_imports_without_jax_or_the_reference():
                 "repro_torch.kernels.ref", "repro_torch.kernels._build",
                 "repro_torch.kernels.fused_compress",
                 "repro_torch.kernels.emit_scatter",
-                "repro_torch.kernels.window_select", "repro_torch.compat",
+                "repro_torch.kernels.window_select",
+                "repro_torch.kernels.decode_wave",
+                "repro_torch.kernels.plan_speculative",
+                "repro_torch.kernels.crc32", "repro_torch.core.decode_plan",
+                "repro_torch.core.decode_engine", "repro_torch.compat",
                 "repro_torch.obs.trace", "repro_torch.obs.metrics",
                 "repro_torch.resilience.errors"):
         assert mod in res["imported"], mod
@@ -84,9 +88,26 @@ def test_engine_defaults_to_the_card_and_says_so(monkeypatch):
     assert eng.stats.candidate_impl == "fused"
 
 
+def test_decode_engine_defaults_to_the_card_and_says_so(monkeypatch):
+    from repro_torch import LZ4DecodeEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        LZ4DecodeEngine()
+    with pytest.raises(RuntimeError, match="is_available"):
+        LZ4DecodeEngine(device="cuda")
+    with pytest.raises(ValueError):
+        LZ4DecodeEngine(device="meta")
+    eng = LZ4DecodeEngine(device="cpu")
+    assert eng.executor == "device" and eng.device == torch.device("cpu")
+
+
 def test_kernel_sources_and_build_plan():
     from repro_torch.kernels import _build
 
+    assert _build.KERNEL_SOURCES == (
+        "fused_compress", "emit_scatter", "window_select", "decode_wave",
+        "plan_speculative", "crc32")
     for name in _build.KERNEL_SOURCES:
         src = _build.CSRC / f"{name}.cu"
         assert src.is_file(), src
