@@ -5,11 +5,13 @@
 
 Builds the CUDA kernels from `src/repro_torch/csrc/*.cu` (into `build/`),
 holds each against its plain PyTorch version on the card (exact equality —
-every output is an integer or a byte), then drives the port's two paths:
-the write path, `repro_torch.LZ4Engine(device="cuda").compress`, and the read
-path, `repro_torch.LZ4DecodeEngine(device="cuda")` (`decode`,
-`decode_blocks`, `decode_to_device`, `FrameReader.read_range_device`), on
-8 MiB and on 256 MiB of seeded data, and checks the frames and the bytes.
+every output is an integer or a byte), then drives the port's paths: the
+write path, `repro_torch.LZ4Engine(device="cuda").compress`, through the
+fused datapath (the default) and through the staged one
+(``candidate_impl="sort"|"sortkey"|"scatter"``), and the read path,
+`repro_torch.LZ4DecodeEngine(device="cuda")` (`decode`, `decode_blocks`,
+`decode_to_device`, `FrameReader.read_range_device`), on 8 MiB and on
+256 MiB of seeded data, and checks the frames and the bytes.
 Imports `repro_torch` only — never the JAX reference.  One JSON line per
 phase; any failed check raises, so the process exits non-zero at once.
 Without a CUDA device it exits non-zero and prints no result.
@@ -58,12 +60,14 @@ from repro_torch.core.decode_plan import (  # noqa: E402
 from repro_torch.core.decoder import decode_block  # noqa: E402
 from repro_torch.core.emitter import emit_block  # noqa: E402
 from repro_torch.core.frame import block_crc, check_block  # noqa: E402
-from repro_torch.core.lz4_types import MAX_BLOCK, MIN_MATCH  # noqa: E402
+from repro_torch.core.lz4_types import LAST_LITERALS, MAX_BLOCK, MIN_MATCH  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import crc32 as k_crc  # noqa: E402
 from repro_torch.kernels import decode_wave as k_wave  # noqa: E402
 from repro_torch.kernels import emit_scatter as k_emit  # noqa: E402
+from repro_torch.kernels import fibhash as k_fib  # noqa: E402
 from repro_torch.kernels import fused_compress as k_fused  # noqa: E402
+from repro_torch.kernels import match_extend as k_ext  # noqa: E402
 from repro_torch.kernels import plan_speculative as k_plan  # noqa: E402
 from repro_torch.kernels import window_select as k_select  # noqa: E402
 
@@ -77,6 +81,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 KERNEL_MODULES = (k_fused, k_emit, k_select)           # the write path's
 READ_KERNEL_MODULES = (k_wave, k_plan, k_crc)          # the read path's
+STAGED_KERNEL_MODULES = (k_fib, k_ext)                 # the staged path's
+ALL_KERNEL_MODULES = KERNEL_MODULES + STAGED_KERNEL_MODULES
+STAGED_IMPLS = ("sort", "sortkey", "scatter")
 CAPS = DevicePlanCaps()
 ROUND_BUCKETS = (0, 1, 2, 4, 8, 16)
 LONG_CRC_ROW = (64 << 20) + 5   # bytes of the long row the crc32 kernel checks
@@ -374,6 +381,148 @@ def phase_kernels() -> dict:
         res[name].update(timed(w, name))
     say("kernels_check", shapes=dict(M=M, B=B, P=P, K=K, S=S, W=W),
         tolerance=0, results=res)
+    return res
+
+
+# -- the staged compress path -------------------------------------------------
+
+STAGED_NS = (0, 1, 2, 3, 4, 5, 12, 13, 2500, MAX_BLOCK)
+
+
+def odd_candidates(rng, shape, B: int) -> torch.Tensor:
+    """Random (M, P) int32 candidates: in-range, -1, at or past the row's end,
+    at or after the position itself, and the int32 extremes."""
+    M, P = shape
+    p = np.arange(P, dtype=np.int64)[None, :]
+    pick = rng.integers(0, 6, shape)
+    cand = np.select(
+        [pick == 0, pick == 1, pick == 2, pick == 3, pick == 4],
+        [rng.integers(0, P, shape), np.full(shape, -1),
+         rng.integers(B - 4, B + 100, shape), p + rng.integers(0, 8, shape),
+         rng.choice([-(1 << 31), (1 << 31) - 1, 1 << 30], shape)],
+        rng.integers(-100, 0, shape))
+    return torch.from_numpy(cand.astype(np.int32)).to(DEV)
+
+
+def sector_bytes(mask: torch.Tensor) -> int:
+    """Bytes in the 32-byte sectors (the card's smallest DRAM transfer) that
+    hold a byte flagged in `mask`, one flag per byte of a buffer."""
+    flat = mask.reshape(-1)
+    pad = torch.zeros(((-flat.numel()) % 32,), dtype=torch.bool, device=flat.device)
+    return int(torch.cat([flat, pad]).view(-1, 32).any(1).sum()) * 32
+
+
+def match_extend_work(block, cand, valid, ns, lengths, max_match: int):
+    """Bytes and operations `match_extend` needs on these inputs (the least
+    any kernel must do, from this data): all of `valid` and `ns` read and
+    every length written; `cand` only in the sectors that hold a valid
+    position; of each row only the sectors its compares read.  A valid
+    position compares `min(e + 1, cap)` byte pairs (its extension e, plus
+    the mismatch that stops it below the cap), at p + 4 + j and at
+    cand + 4 + j, each clamped to the row as the kernel clamps it.
+    Returns (bytes, operations, byte compares)."""
+    M, B = block.shape
+    P = cand.shape[1]
+    dev = block.device
+    p = torch.arange(P, dtype=torch.int64, device=dev)[None, :].expand(M, P)
+    cap = (ns.long()[:, None] - LAST_LITERALS - (p + MIN_MATCH)).clamp(
+        0, max_match - MIN_MATCH)
+    k = torch.minimum(lengths.long() - MIN_MATCH + 1, cap)
+    live = valid & (k > 0)
+    # the compared row bytes: a +1/-1 at each range's ends, summed along the row
+    diff = torch.zeros((M, B + 1), dtype=torch.int32, device=dev)
+    rows = torch.arange(M, device=dev)[:, None].expand(M, P)[live]
+    for start in (p + MIN_MATCH, cand.long() + MIN_MATCH):
+        s, n = start[live], k[live]
+        lo, hi = s.clamp(0, B - 1), (s + n).clamp(1, B)
+        ones = torch.ones_like(lo, dtype=torch.int32)
+        diff.index_put_((rows, lo), ones, accumulate=True)
+        diff.index_put_((rows, hi), -ones, accumulate=True)
+    row_bytes = sector_bytes(diff[:, :B].cumsum(1) > 0)
+    cand_bytes = sector_bytes(valid.reshape(-1, 1).expand(-1, 4))
+    compares = int(k[live].sum())
+    nbytes = M * P + M * 4 + cand_bytes + row_bytes + M * P * 4
+    return nbytes, M * P * 4 + 4 * compares, compares
+
+
+def phase_staged_kernels() -> dict:
+    """`fibhash` and `match_extend` against their plain versions on the card,
+    exact, on the adversarial + corpus blocks (zeros and noise past n),
+    hash_bits over {1, 6, 8, 12, 13, 16} and max_match over {12, 20, 36, 68};
+    times at M = 32 and the engine defaults."""
+    res, note = comparer(STAGED_KERNEL_MODULES)
+    rng = np.random.default_rng(SEED + 10)
+    hb, mm, pws = DEFAULTS
+    timing_inputs = {}
+    for garbage in (False, True):
+        blocks, ns = kernel_blocks(32, garbage=garbage)
+        B = blocks.shape[1]
+        # fibhash: the rows as they come and as the staged path masks them,
+        # every position the row has and the engine's MAX_BLOCK
+        block, cand, valid4 = compressor.staged_candidates(blocks, ns, "scatter", hb, pws)
+        for bits in (1, 6, 8, 12, 13, 16):
+            for rows in (blocks, block):
+                for P in (MAX_BLOCK, B - 3):
+                    got = k_fib.fibhash(rows, P, bits)
+                    torch.cuda.synchronize()
+                    note("fibhash", *zip(got, k_fib.fibhash_plain(rows, P, bits)))
+        # match_extend: the staged path's own inputs; random candidates
+        # (-1, past the row, >= p, int32 extremes) with a random mask; every
+        # n of STAGED_NS; all-zero rows, where every extension runs to its cap
+        odd = odd_candidates(rng, cand.shape, B)
+        odd_valid = torch.from_numpy(rng.random(cand.shape) < 0.7).to(DEV)
+        odd_ns = torch.tensor([STAGED_NS[j % len(STAGED_NS)]
+                               for j in range(cand.shape[0])],
+                              dtype=torch.int32, device=DEV)
+        zeros = torch.zeros_like(blocks)
+        zero_cand = torch.from_numpy(
+            rng.integers(-2, MAX_BLOCK, cand.shape).astype(np.int32)).to(DEV)
+        all_true = torch.ones_like(valid4)
+        full_ns = torch.full_like(ns, MAX_BLOCK)
+        for m in (12, 20, 36, 68):
+            for args in ((block, cand, valid4, ns),
+                         (blocks, odd, odd_valid, odd_ns),
+                         (blocks, odd, odd_valid.to(torch.uint8), ns),
+                         (zeros, zero_cand, all_true, full_ns)):
+                got = k_ext.match_extend(*args, m)
+                torch.cuda.synchronize()
+                note("match_extend", (got, k_ext.match_extend_plain(
+                    *args[:2], args[2].to(torch.bool), args[3], m)))
+            got = k_ext.match_extend(zeros, zero_cand, all_true, full_ns, m)
+            p = torch.arange(MAX_BLOCK, device=DEV)
+            cap = MIN_MATCH + torch.clamp(MAX_BLOCK - 5 - (p + MIN_MATCH), 0, m - MIN_MATCH)
+            check(bool((got == cap.to(torch.int32)[None]).all()),
+                  "match_extend on all-zero rows did not run to the cap")
+        if not garbage:
+            timing_inputs = dict(blocks=blocks, block=block, cand=cand,
+                                 valid4=valid4, ns=ns)
+
+    t = timing_inputs
+    (M, B), P = t["block"].shape, MAX_BLOCK
+    lengths = k_ext.match_extend(t["block"], t["cand"], t["valid4"], t["ns"], mm)
+    ext_bytes, ext_ops, compares = match_extend_work(
+        t["block"], t["cand"], t["valid4"], t["ns"], lengths, mm)
+    work = {
+        # fibhash: each input read once (P + 3 bytes of each row), each
+        # output written once.
+        "fibhash": dict(
+            bytes=M * (P + 3) + 2 * M * P * 4,
+            ops=M * P * 9,
+            run=lambda: k_fib.fibhash(t["block"], P, hb),
+            plain=lambda: k_fib.fibhash_plain(t["block"], P, hb),
+            plain_iters=5),
+        # what this run's data needs (`match_extend_work`)
+        "match_extend": dict(
+            bytes=ext_bytes,
+            ops=ext_ops,
+            run=lambda: k_ext.match_extend(t["block"], t["cand"], t["valid4"], t["ns"], mm),
+            plain=lambda: k_ext.match_extend_plain(t["block"], t["cand"], t["valid4"], t["ns"], mm),
+            plain_iters=3),
+    }
+    for name, w in work.items():
+        res[name].update(timed(w, name))
+    say("staged_kernels_check", shapes=dict(M=M, B=B, P=P), tolerance=0,
+        valid_positions=int(t["valid4"].sum()), compares=compares, results=res)
     return res
 
 
@@ -776,7 +925,7 @@ def phase_read_breakdown(data: bytes) -> None:
         micro_batch=8, wall_seconds=wall, spans=table, device=device)
 
 
-def phase_path_small() -> None:
+def phase_path_small() -> tuple[bytes, bytes]:
     data = seeded_data(8 << 20, SEED + 3)
     t0 = time.perf_counter()
     cpu = LZ4Engine(device="cpu")
@@ -800,6 +949,7 @@ def phase_path_small() -> None:
     say("path_small", bytes_in=len(data), frame_bytes=len(ref_frame),
         cpu_plain_seconds=round(cpu_s, 3), cpu_stats=cpu.stats.as_dict(),
         frames_equal=len(combos), combos=combos, round_trip=True)
+    return data, ref_frame
 
 
 def verify_frame(frame: bytes, data: bytes, sample: int, seed: int) -> dict:
@@ -863,6 +1013,93 @@ def phase_breakdown(data: bytes) -> None:
         spans=table, device=device)
 
 
+def staged_want(st, scan_impl: str = "sequential", device_emit: bool = True) -> dict:
+    """Launches one staged-path call must show: the two staged kernels once
+    per dispatch, the select and emit kernels where the call runs them, and
+    never the fused kernel."""
+    d = st.dispatches
+    return dict(fused_compress=0, emit_scatter=d if device_emit else 0,
+                window_select=d if scan_impl == "sequential" else 0,
+                fibhash=d, match_extend=d)
+
+
+def phase_path_staged_small(data: bytes, ref_frame: bytes) -> None:
+    """8 MiB (the data of `path_small`) through the staged path, every
+    candidate stage, both selects and once with host emission: each frame ==
+    the CPU plain-version frame `path_small` computed."""
+    combos = []
+    for impl in STAGED_IMPLS:
+        for scan_impl, device_emit in (("sequential", True), ("associative", True),
+                                       ("sequential", False)):
+            eng = LZ4Engine(device=DEV, candidate_impl=impl, scan_impl=scan_impl,
+                            device_emit=device_emit)
+            reset_launches(ALL_KERNEL_MODULES)
+            frame = eng.compress(data)
+            torch.cuda.synchronize()
+            launches = launch_counts(ALL_KERNEL_MODULES)
+            check(frame == ref_frame,
+                  f"staged frame differs from the CPU plain-version frame "
+                  f"({impl}, {scan_impl}, device_emit={device_emit})")
+            check(eng.stats.candidate_impl == impl, "stats.candidate_impl")
+            want = staged_want(eng.stats, scan_impl, device_emit)
+            check(launches == want, f"{impl}/{scan_impl}/{device_emit}: "
+                  f"launches {launches}, want {want}")
+            combos.append(dict(candidate_impl=impl, scan_impl=scan_impl,
+                               device_emit=device_emit,
+                               dispatches=eng.stats.dispatches,
+                               host_bytes=eng.stats.host_bytes))
+    say("path_staged_small", bytes_in=len(data), frames_equal=len(combos),
+        combos=combos)
+
+
+def phase_path_staged_full(data: bytes, full_frame: bytes) -> dict:
+    """The staged path at full size (256 MiB, micro-batch 32, engine
+    defaults): ``candidate_impl="scatter"`` (the JAX package's choice on a
+    GPU) and ``"sortkey"``; each frame == the frame `path_full` wrote.
+    Counts are zeroed just before and read just after each call; returns
+    the scatter run's."""
+    runs, main = [], None
+    for impl in ("scatter", "sortkey"):
+        eng = LZ4Engine(device=DEV, candidate_impl=impl)
+        eng.compress(data[: 32 << 20])          # unmeasured: allocator growth
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(ALL_KERNEL_MODULES)
+        t0 = time.perf_counter()
+        frame = eng.compress(data)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts(ALL_KERNEL_MODULES)
+        st = eng.stats
+        check(frame == full_frame,
+              f"{impl}: the 256 MiB frame differs from path_full's")
+        check(launches == staged_want(st) and st.dispatches > 0,
+              f"{impl}: launches {launches} for {st.dispatches} dispatches")
+        if impl == "scatter":
+            main = launches
+        runs.append(dict(candidate_impl=impl, seconds=seconds,
+                         input_GB_per_s=len(data) / seconds / 1e9,
+                         blocks_per_s=st.blocks / seconds,
+                         host_bytes_per_input_byte=st.host_bytes / len(data),
+                         peak_device_MiB=torch.cuda.max_memory_allocated() / 2**20,
+                         stats=st.as_dict(), launches=launches))
+    say("path_staged_full", bytes_in=len(data), frame_bytes=len(full_frame),
+        micro_batch=32, frames_equal_path_full=True, runs=runs)
+    return main
+
+
+def phase_staged_breakdown(data: bytes) -> None:
+    """Where the staged path's (scatter) wall time goes: engine spans over
+    one call and the device's idle share and largest rows under the
+    profiler, as `breakdown` does for the fused path."""
+    eng = LZ4Engine(device=DEV, candidate_impl="scatter", telemetry=True)
+    table, wall = span_table(lambda: eng.compress(data))
+    plain = LZ4Engine(device=DEV, candidate_impl="scatter")
+    device = profile_device(lambda: plain.compress(data))
+    say("staged_breakdown", candidate_impl="scatter", bytes_in=len(data),
+        micro_batch=32, wall_seconds=wall, spans=table, device=device)
+
+
 def main() -> None:
     # Bring-up aid: `--stop-after build|kernels|small` ends the run early
     # (exit 0, no result lines).  With no arguments the whole run.
@@ -874,9 +1111,10 @@ def main() -> None:
         return
     measured = phase_kernels()
     measured.update(phase_decode_kernels())
+    measured.update(phase_staged_kernels())
     if stop_after == "kernels":
         return
-    phase_path_small()
+    phase_path_staged_small(*phase_path_small())
     phase_read_small()
     if stop_after == "small":
         return
@@ -890,8 +1128,11 @@ def main() -> None:
     launches, frame = phase_path_full(data, micro_batch=32)   # THE write path
     phase_path_full(data, micro_batch=256)
     launches.update(phase_read_full(frame, data))             # THE read path
+    staged = phase_path_staged_full(data, frame)              # the staged path
+    launches.update({k: staged[k] for k in ("fibhash", "match_extend")})
     phase_breakdown(data[: 64 << 20])
     phase_read_breakdown(data[: 64 << 20])
+    phase_staged_breakdown(data[: 64 << 20])
     say("done", seconds=round(time.perf_counter() - t_start, 3))
 
     replaces = {
@@ -903,6 +1144,8 @@ def main() -> None:
         "plan_speculative": "src/repro/kernels/plan_speculative.py:124",
         # no TPU kernel: the lax.scan graph stage crc32_bytes
         "crc32": "src/repro/kernels/ops.py:455",
+        "fibhash": "src/repro/kernels/fibhash.py:44",
+        "match_extend": "src/repro/kernels/match_extend.py:75",
     }
     kernels = []
     for name, m in measured.items():

@@ -7,8 +7,12 @@ by `kernels/_build.py`).  The package imports `torch`, `numpy` and the
 standard library only — never `jax`, never anything of `repro`.
 
 Ported so far: the write path, `core.engine.LZ4Engine.compress` -> frame,
-and the read path, `core.decode_engine.LZ4DecodeEngine` (frame -> bytes on
-the host or a uint8 tensor on the card, `FrameReader` for random access).
+through the fused datapath (the default) or the staged one
+(``candidate_impl="sort"|"sortkey"|"scatter"``); the read path,
+`core.decode_engine.LZ4DecodeEngine` (frame -> bytes on the host or a uint8
+tensor on the card, `FrameReader` for random access); and the NumPy golden
+models and host oracles (`core.reference`, `core.schemes`, `core.encoder`,
+`core.cycle_model`).
 
     from repro_torch import LZ4Engine, LZ4DecodeEngine
     frame = LZ4Engine().compress(data)              # on the card

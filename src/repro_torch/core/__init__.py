@@ -1,10 +1,17 @@
-"""Core LZ4 library of the port — the write path and the read path.
+"""Core LZ4 library of the port — the write path, the read path and the
+NumPy golden models.
 
 Public API:
+    compress_greedy      — multi-match software LZ4 baseline (host, NumPy)
+    compress_windowed    — the paper's single-match windowed golden model
+                           (S1, S1+S2); compress_windowed_multi — the
+                           multi-match windowed model of the cycle analysis
+    encode_block         — exact LZ4 encoder of a sequence plan (host oracle)
     LZ4Engine            — batched compression pipeline (frame out); with
                            ``device_emit=True`` (default) byte emission stays
                            on the device and only final frame bytes cross
-                           the host boundary
+                           the host boundary; ``candidate_impl`` picks the
+                           fused datapath (default) or the staged one
     default_engine       — process-wide shared LZ4Engine
     emit_block           — host-side vectorized (prefix-sum) block emission:
                            the engine's ``device_emit=False`` path and the
@@ -29,6 +36,9 @@ from .lz4_types import (  # noqa: F401
     plan_coverage,
     plan_size,
 )
+from .reference import compress_greedy, compression_ratio  # noqa: F401
+from .schemes import compress_windowed, compress_windowed_multi  # noqa: F401
+from .encoder import encode_block  # noqa: F401
 from .decoder import decode_block, decode_block_bytewise, LZ4FormatError  # noqa: F401
 from .emitter import emit_block, emit_block_from_records  # noqa: F401
 from .frame import (  # noqa: F401

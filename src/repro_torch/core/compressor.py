@@ -1,14 +1,21 @@
 """Batched PyTorch engine of the paper's combined scheme (S1 + S2).
 
 The Hopper re-expression of the hardware architecture in Fig. 5 (the JAX
-package's counterpart is `core/jax_compressor.py`):
+package's counterpart is `core/jax_compressor.py`).  Two datapaths compute
+the same match records, selected by ``candidate_impl``:
 
-  Word Shift + Hash Calculation, Hash Table (last-value table, multi-port),
-  Match Searching, Extended Match (bounded, S2)
-        -> ONE kernel, `kernels.ops.fused_match_candidates`
-           (csrc/fused_compress.cu on the card, `kernels.ref.fused_ref` on
-           the CPU): cand(p) = max{q : hash(q)=hash(p), window(q)<window(p)}
-           plus the bounded match length, no sort anywhere.
+  fused (``"auto"``, ``"fused"``) — Word Shift + Hash Calculation, Hash
+        Table (last-value table, multi-port), Match Searching, Extended
+        Match (bounded, S2) in ONE kernel, `kernels.ops.fused_match_candidates`
+        (csrc/fused_compress.cu on the card, `kernels.ref.fused_ref` on the
+        CPU): cand(p) = max{q : hash(q)=hash(p), window(q)<window(p)} plus
+        the bounded match length, no sort anywhere.
+  staged (``"sort"``, ``"sortkey"``, ``"scatter"``) — the same stages one
+        at a time: `kernels.ops.hash_positions` (csrc/fibhash.cu), a
+        candidate stage in stock torch ops (argsort, a sort of packed keys,
+        or the scatter-max grid of `kernels.ref.scatter_candidates_ref`),
+        the 4-byte word compare, and `kernels.ops.match_lengths`
+        (csrc/match_extend.cu).
   single-match select (S1)
         -> per-window earliest-eligible selection.  The only true
            sequential state is the free pointer; S2 bounds its reach to
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import scatter_candidates_ref
 from repro_torch.kernels.window_select import window_select
 
 from .lz4_types import (
@@ -41,16 +49,16 @@ from .lz4_types import (
     DEFAULT_MAX_MATCH,
     DEFAULT_PWS,
     MAX_BLOCK,
+    MF_LIMIT,
     MIN_MATCH,
     Sequence,
 )
 
 _PAD = 71  # block padding: max max_match (68) + 3 word-shift bytes
 
-# Candidate-resolution implementations.  Only the fused datapath is ported;
-# the staged ones need the `fibhash` and `match_extend` kernels.
+# Candidate-resolution implementations: the staged ones and the fused
+# single-pass datapath.  All give the same match records.
 CANDIDATE_IMPLS = ("sort", "sortkey", "scatter", "fused")
-_STAGED_IMPLS = ("sort", "sortkey", "scatter")
 
 # Device-emit output buffer size per block.  The worst case compressed block
 # is literals-only: 1 token + 257 extension bytes + MAX_BLOCK literals =
@@ -62,20 +70,18 @@ OUT_CAP = MAX_BLOCK + 2048
 def resolve_candidate_impl(candidate_impl: str = "auto") -> str:
     """Resolve ``"auto"`` to the implementation that runs.
 
-    ``"auto"`` and ``"fused"`` both run the fused datapath (the hand kernel
-    on the card, its plain version on the CPU).  The staged implementations
-    (``"sort"``, ``"sortkey"``, ``"scatter"``) are not ported yet.
+    ``"auto"`` runs the fused datapath (the hand kernel on the card, its
+    plain version on the CPU).  Concrete names pass through unchanged, so a
+    caller can always pin one: ``"sort"``, ``"sortkey"`` and ``"scatter"``
+    run the staged path.
     """
-    if candidate_impl in ("auto", "fused"):
+    if candidate_impl == "auto":
         return "fused"
-    if candidate_impl in _STAGED_IMPLS:
-        raise NotImplementedError(
-            f"candidate_impl={candidate_impl!r} is the staged compress path; "
-            "it needs the fibhash and match_extend kernels, which are still "
-            "to be ported (ROADMAP.md queue B)")
-    raise ValueError(
-        f"candidate_impl must be 'auto' or one of {CANDIDATE_IMPLS}, "
-        f"got {candidate_impl!r}")
+    if candidate_impl not in CANDIDATE_IMPLS:
+        raise ValueError(
+            f"candidate_impl must be 'auto' or one of {CANDIDATE_IMPLS}, "
+            f"got {candidate_impl!r}")
+    return candidate_impl
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +93,100 @@ class BlockRecords:
     length: torch.Tensor   # (M, W) int32
     offset: torch.Tensor   # (M, W) int32
     size: torch.Tensor     # (M,) int32 — exact compressed size of each block
+
+
+def _wrap_int32(x):
+    """int64 -> int32 with two's-complement wrap-around (what int32
+    arithmetic in the reference does on overflow)."""
+    return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def _shift_right(x, fill: int):
+    """x[:, i-1] at column i, `fill` at column 0."""
+    return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], dim=1)
+
+
+def _sorted_key(hashes, n, hash_bits: int):
+    """Per position the sort key ``h * P + p`` in int32, as the reference
+    forms it: positions without a full 4-byte word take the sentinel bucket
+    ``1 << hash_bits`` (they can neither find nor become candidates), and the
+    product wraps — at hash_bits 16 the sentinel's key is p itself."""
+    M, P = hashes.shape
+    p = torch.arange(P, dtype=torch.int64, device=hashes.device)[None, :]
+    valid_pos = p <= n.to(torch.int64)[:, None] - MIN_MATCH
+    h = torch.where(valid_pos, hashes, torch.full_like(hashes, 1 << hash_bits))
+    return h, _wrap_int32(h.to(torch.int64) * P + p)
+
+
+def _resolve_groups(h_s, p_s, pws: int):
+    """Candidates in sorted order: within a run of equal hashes, a window's
+    positions all take the last position of the run's previous window."""
+    M, P = h_s.shape
+    w_s = torch.div(p_s, pws, rounding_mode="floor")
+    prev_h, prev_w, prev_p = (_shift_right(x, -1) for x in (h_s, w_s, p_s))
+    same_hash = h_s == prev_h
+    head = ~(same_hash & (w_s == prev_w))
+    group_id = (torch.cumsum(head.to(torch.int32), dim=1, dtype=torch.int32)
+                - 1).to(torch.int64)
+    head_cand = torch.where(head & same_hash, prev_p, torch.full_like(prev_p, -1))
+    # Each group has exactly one head: scatter its candidate, gather back.
+    group_val = torch.zeros((M, P), dtype=torch.int32, device=h_s.device)
+    group_val.scatter_add_(1, group_id, torch.where(
+        head, head_cand + 1, torch.zeros_like(head_cand)).to(torch.int32))
+    return torch.gather(group_val, 1, group_id) - 1
+
+
+def _candidates(hashes, n, hash_bits: int, pws: int):
+    """Sort-based last-value-table candidate resolution (argsort of the
+    packed key).  hashes (M, P) int32, n (M,) int32 -> (M, P) int32."""
+    h, key = _sorted_key(hashes, n, hash_bits)
+    order = torch.argsort(key, dim=1, stable=True)
+    cand_s = _resolve_groups(torch.gather(h, 1, order), order.to(torch.int32), pws)
+    return torch.zeros_like(hashes).scatter_(1, order, cand_s)
+
+
+def _candidates_sortkey(hashes, n, hash_bits: int, pws: int):
+    """Key-packed sort candidate resolution: sort the int32 keys themselves
+    and recover hash and position by bit operations, as the reference does
+    (``key >> 16`` arithmetic, ``key & (P - 1)``)."""
+    P = hashes.shape[1]
+    if P & (P - 1):
+        raise ValueError(f"key packing requires a power-of-two P, got {P}")
+    _, key = _sorted_key(hashes, n, hash_bits)
+    skey = torch.sort(key, dim=1).values
+    p_s = skey & (P - 1)
+    cand_s = _resolve_groups(skey >> 16, p_s, pws)
+    return torch.zeros_like(hashes).scatter_(1, p_s.to(torch.int64), cand_s)
+
+
+_CANDIDATE_FNS = {"sort": _candidates, "sortkey": _candidates_sortkey,
+                  # the scatter-max grid that the fused datapath's plain
+                  # version shares, so the two cannot drift
+                  "scatter": scatter_candidates_ref}
+
+
+def staged_candidates(blocks_u8, ns, candidate_impl: str, hash_bits: int,
+                      pws: int):
+    """The staged datapath up to the extension: hash -> candidates -> word
+    compare.
+
+    blocks_u8 : (M, MAX_BLOCK + _PAD) uint8; ns : (M,) int32.
+    Returns ``(block, cand, valid4)``: the blocks with every byte at or past
+    n zeroed (what the reference hashes and extends over), the (M, MAX_BLOCK)
+    int32 candidates and the bool mask of positions whose 4-byte word equals
+    their candidate's and where a match may start.
+    """
+    M, B = blocks_u8.shape
+    dev = blocks_u8.device
+    # Zero the padding region so it can never fake matches past n.
+    idx = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+    block = torch.where(idx < ns[:, None], blocks_u8, torch.zeros_like(blocks_u8))
+    words, hashes = ops.hash_positions(block, hash_bits, positions=MAX_BLOCK)
+    cand = _CANDIDATE_FNS[candidate_impl](hashes, ns, hash_bits, pws)
+    p = torch.arange(MAX_BLOCK, dtype=torch.int32, device=dev)[None, :]
+    wc = torch.gather(words, 1, torch.clamp(cand, 0, MAX_BLOCK - 1).to(torch.int64))
+    valid4 = (cand >= 0) & (wc == words) & (p <= ns[:, None] - MF_LIMIT)
+    return block, cand, valid4
 
 
 def _select_sequential(valid, lengths, pws: int):
@@ -187,17 +287,24 @@ def compress_blocks_records(
     if blocks_u8.dim() != 2 or blocks_u8.shape[1] != MAX_BLOCK + _PAD:
         raise ValueError(f"expected (M, {MAX_BLOCK + _PAD}) blocks, got "
                          f"{tuple(blocks_u8.shape)}")
-    resolve_candidate_impl(candidate_impl)
+    candidate_impl = resolve_candidate_impl(candidate_impl)
     if scan_impl not in ("sequential", "associative"):
         raise ValueError(scan_impl)
     ns = ns.to(torch.int32)
 
-    # Single-pass datapath: hash, candidate, word compare and the bounded
-    # extension come back from ONE kernel — no intermediate hash/word arrays.
-    cand, lengths = ops.fused_match_candidates(
-        blocks_u8, ns, positions=MAX_BLOCK, hash_bits=hash_bits, pws=pws,
-        max_match=max_match)
-    valid = lengths >= MIN_MATCH
+    if candidate_impl == "fused":
+        # Single-pass datapath: hash, candidate, word compare and the bounded
+        # extension come back from ONE kernel — no intermediate hash/word
+        # arrays.
+        cand, lengths = ops.fused_match_candidates(
+            blocks_u8, ns, positions=MAX_BLOCK, hash_bits=hash_bits, pws=pws,
+            max_match=max_match)
+        valid = lengths >= MIN_MATCH
+    else:
+        block, cand, valid4 = staged_candidates(blocks_u8, ns, candidate_impl,
+                                                hash_bits, pws)
+        lengths = ops.match_lengths(block, cand, valid4, ns, max_match=max_match)
+        valid = valid4 & (lengths >= MIN_MATCH)
 
     if scan_impl == "sequential":
         emit, pos, length = _select_sequential(valid, lengths, pws)

@@ -5,9 +5,11 @@ feedback-free token pipeline batch-parallel end to end:
 
   * arbitrary-length input is split into a ``(M, MAX_BLOCK + _PAD)`` uint8
     stack and compressed with ONE batched dispatch per micro-batch
-    (configurable ``micro_batch``): the fused-datapath kernel, the window
-    select, the layout prefix sums and the byte-emission kernel, all queued
-    on the device's stream;
+    (configurable ``micro_batch``): the fused-datapath kernel (or, with
+    ``candidate_impl="sort"|"sortkey"|"scatter"``, the staged path: the
+    fibhash kernel, a candidate stage in stock torch ops, the word compare
+    and the match_extend kernel), the window select, the layout prefix sums
+    and the byte-emission kernel, all queued on the device's stream;
   * dispatch is double-buffered: kernel launches are asynchronous, so while
     the device crunches micro-batch i the host pads and dispatches
     micro-batch i+1, and — with ``device_emit`` — assembles the frame for

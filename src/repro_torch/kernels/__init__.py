@@ -7,7 +7,9 @@ Kernels (CUDA C++ for sm_90a, sources in `../csrc/`):
   window_select   — the single-match free-pointer scan over the windows;
   decode_wave     — pointer-doubling resolve + byte gather of the read path;
   plan_speculative — a candidate LZ4 header at every offset + chain select;
-  crc32           — CRC-32 of rows of any length (chunks + GF(2) combine).
+  crc32           — CRC-32 of rows of any length (chunks + GF(2) combine);
+  fibhash         — word + Fibonacci hash per position (staged compress path);
+  match_extend    — bounded match extension given candidates (staged path).
 
 Layout per kernel: <name>.py (wrapper: checks, launch, launch counter, and
 the plain version re-exported as `<name>_plain`), `../csrc/<name>.cu` (the

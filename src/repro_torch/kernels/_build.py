@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNEL_SOURCES = ("fused_compress", "emit_scatter", "window_select",
-                  "decode_wave", "plan_speculative", "crc32")
+                  "decode_wave", "plan_speculative", "crc32", "fibhash",
+                  "match_extend")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

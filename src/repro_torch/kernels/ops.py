@@ -17,8 +17,33 @@ from . import ref
 from .crc32 import crc32
 from .decode_wave import decode_wave
 from .emit_scatter import emit_scatter
+from .fibhash import fibhash
 from .fused_compress import fused_compress
+from .match_extend import match_extend
 from .plan_speculative import plan_speculative as plan_fields
+
+
+def hash_positions(blocks_u8, hash_bits: int = 8, positions: int | None = None):
+    """Word + Fibonacci hash at every position of each (M, B) uint8 row.
+
+    Each word reads bytes p..p+3, so at most B - 3 positions have one;
+    ``positions`` (default B - 3) takes the first P of them without copying
+    the rows.  Returns ``(words, hashes)``, both (M, P) int32: the word as
+    the bit pattern of its uint32 value and the hash in [0, 2^hash_bits).
+    """
+    P = blocks_u8.shape[1] - 3 if positions is None else positions
+    return fibhash(blocks_u8, P, hash_bits)
+
+
+def match_lengths(blocks_u8, cand, valid, ns, max_match: int = 36):
+    """Bounded match length per position (0 where ~valid, else in
+    [4, max_match]).
+
+    blocks_u8 : (M, B) uint8; cand (M, P) int32; valid (M, P) bool;
+    ns (M,) int32.  Every block read is clamped to the row, so garbage
+    candidates where ~valid are harmless.
+    """
+    return match_extend(blocks_u8, cand, valid, ns, max_match)
 
 
 def fused_match_candidates(blocks_u8, ns, positions: int, hash_bits: int = 8,

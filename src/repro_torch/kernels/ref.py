@@ -4,7 +4,8 @@ Every function here is batched: the leading axis ``M`` is the micro-batch of
 blocks, and nothing is vmapped.  They run on whatever device their inputs
 live on; on CPU tensors the kernel wrappers (`fused_compress.py`,
 `emit_scatter.py`, `window_select.py`, `decode_wave.py`,
-`plan_speculative.py`, `crc32.py`) dispatch to them, and on the card they
+`plan_speculative.py`, `crc32.py`, `fibhash.py`, `match_extend.py`)
+dispatch to them, and on the card they
 are what each hand-written kernel is held against.
 
 All arithmetic is integer, so every comparison against these functions is

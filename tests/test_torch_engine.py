@@ -143,9 +143,13 @@ def test_engine_config_mapping_and_refusals():
         with pytest.raises(NotImplementedError):
             compat.engine_config(**{k: 2})
     assert resolve_candidate_impl("auto") == resolve_candidate_impl("fused") == "fused"
+    data = b"staged path " * 400
     for impl in ("sort", "sortkey", "scatter"):
-        with pytest.raises(NotImplementedError, match="queue B"):
-            LZ4Engine(device="cpu", candidate_impl=impl)
+        # The staged names resolve to themselves and run.
+        assert resolve_candidate_impl(impl) == impl
+        eng = LZ4Engine(device="cpu", candidate_impl=impl)
+        assert eng.decompress(eng.compress(data)) == data
+        assert eng.stats.candidate_impl == impl
     with pytest.raises(ValueError):
         LZ4Engine(device="cpu", candidate_impl="bogus")
     with pytest.raises(ValueError):

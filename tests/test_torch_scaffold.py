@@ -50,7 +50,11 @@ def test_every_module_imports_without_jax_or_the_reference():
                 "repro_torch.kernels.window_select",
                 "repro_torch.kernels.decode_wave",
                 "repro_torch.kernels.plan_speculative",
-                "repro_torch.kernels.crc32", "repro_torch.core.decode_plan",
+                "repro_torch.kernels.crc32", "repro_torch.kernels.fibhash",
+                "repro_torch.kernels.match_extend",
+                "repro_torch.core.reference", "repro_torch.core.schemes",
+                "repro_torch.core.encoder", "repro_torch.core.cycle_model",
+                "repro_torch.core.decode_plan",
                 "repro_torch.core.decode_engine", "repro_torch.compat",
                 "repro_torch.obs.trace", "repro_torch.obs.metrics",
                 "repro_torch.resilience.errors"):
@@ -107,7 +111,7 @@ def test_kernel_sources_and_build_plan():
 
     assert _build.KERNEL_SOURCES == (
         "fused_compress", "emit_scatter", "window_select", "decode_wave",
-        "plan_speculative", "crc32")
+        "plan_speculative", "crc32", "fibhash", "match_extend")
     for name in _build.KERNEL_SOURCES:
         src = _build.CSRC / f"{name}.cu"
         assert src.is_file(), src
