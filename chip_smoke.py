@@ -18,12 +18,16 @@ Without a CUDA device it exits non-zero and prints no result.
 
 The second to last line is ``{"kernels": [...]}`` (per kernel: launches on
 the main path, error against the plain version, time, plain time, bound);
-the last line is ``{"ok": true, "device": {...}}``.
+the last line is ``{"ok": true, "device": {...}}``.  The 256 MiB write
+phases print each frame's SHA-256, so that runs of two checkouts show
+whether they write the same bytes.
 """
 from __future__ import annotations
 
 import binascii
+import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -250,6 +254,38 @@ def boundary_layouts():
             stack(3, np.int32)), oracles
 
 
+def cu_const(name: str, key: str) -> int:
+    """A constant of a kernel source (``constexpr int KEY = N;``)."""
+    src = (ROOT / "src" / "repro_torch" / "csrc" / f"{name}.cu").read_text()
+    return int(re.search(rf"constexpr int {key} = (\d+);", src).group(1))
+
+
+def select_hard_rows(pws: int, P: int, seed: int):
+    """(7, P) valid + lengths on the card for the window select at one pws:
+    lengths in [-3, CAP], lengths that jump several windows (36 at pws 4),
+    zeros and negatives at valid positions, all valid with every length at
+    R (17) and at CAP, and two rows that take the kernel's sequential walk: a
+    valid length of CAP + 45 = 300, and one of 2^31 - 3 (the free pointer
+    wraps int32)."""
+    cap = cu_const("window_select", "CAP")
+    rng = np.random.default_rng(seed)
+    ar = np.arange(P)
+    rows = [
+        (rng.random(P) < 0.5, rng.integers(-3, cap + 1, P)),
+        (rng.random(P) < 0.3, np.full(P, 36 if pws <= 4 else min(cap, 9 * pws))),
+        (rng.random(P) < 0.6, rng.integers(-3, 2, P)),
+        (np.ones(P, bool), np.full(P, 17)),
+        (np.ones(P, bool), np.full(P, cap)),
+        ((rng.random(P) < 0.7) | (ar == P // 2),
+         np.where(ar == P // 2, cap + 45, rng.integers(4, 37, P))),
+        ((ar % 3 != 1) | (ar == P // 3),
+         np.where(ar == P // 3, 2**31 - 3, rng.integers(4, 37, P))),
+    ]
+    v = torch.from_numpy(np.stack([r[0] for r in rows])).to(DEV)
+    lengths = np.stack([r[1] for r in rows]).astype(np.int32)
+    return v, torch.from_numpy(lengths).to(DEV)
+
+
 # -- phases -----------------------------------------------------------------
 
 def phase_env() -> str:
@@ -345,6 +381,19 @@ def phase_kernels() -> dict:
         v = got[1] >= MIN_MATCH
         note("window_select", *zip(k_select.window_select(v, got[1], pws),
                                    k_select.window_select_plain(v, got[1], pws)))
+
+    # window_select: every pws of {1, ..., 2048} on rows that stress the
+    # chunked form and take its sequential walk; P that leaves chunks ragged
+    # or fewer chunks than CTAs
+    for pws in (1, 4, 8, 16, 32, 64, 2048):
+        v, l = select_hard_rows(pws, MAX_BLOCK, SEED + 20 + pws)
+        note("window_select", *zip(k_select.window_select(v, l, pws),
+                                   k_select.window_select_plain(v, l, pws)))
+    for P, pws in ((1000, 8), (24, 8), (3 * 2048, 2048), (MAX_BLOCK - 256, 4)):
+        v, l = select_hard_rows(pws, P, SEED + 30 + P)
+        v = v.to(torch.uint8)
+        note("window_select", *zip(k_select.window_select(v, l, pws),
+                                   k_select.window_select_plain(v, l, pws)))
 
     # -- times at M = 32, defaults -------------------------------------------
     t = timing_inputs
@@ -591,6 +640,52 @@ def spec_rows(payloads: list[bytes]) -> list[bytes]:
     return rows
 
 
+def chain_row(rng, n: int, through=()) -> bytes:
+    """n bytes of sequences with no match extension, each hop 3..17 bytes
+    (token, lit_nib literals, two offset bytes), passing through every offset
+    in `through`."""
+    out = bytearray()
+    targets = sorted(t for t in through if 0 < t < n)
+    while len(out) < n:
+        cur = len(out)
+        gap = next((t - cur for t in targets if t > cur), n - cur)
+        hop = gap if 3 <= gap <= 17 else min(17, max(3, gap - 3))
+        hop = min(hop, n - cur) if n - cur >= 3 else n - cur
+        lit = max(hop - 3, 0)
+        out.append((lit << 4) | int(rng.integers(0, 15)))
+        out += rng.integers(0, 256, max(hop - 1, 0), np.uint8).tobytes()
+    return bytes(out[:n])
+
+
+def spec_hard_rows() -> list[bytes]:
+    """Rows for the header kernel's chunked chain select: the longest chain
+    (`00 xx xx`, 21,846 headers), literals that jump a whole chunk, hops
+    landing on, just before and just after every chunk edge, on and just
+    before every segment edge, n in {0, 1, 2, 3, blk_cap}, and a row that is
+    70 % 0xFF bytes."""
+    rng = np.random.default_rng(SEED + 21)
+    cap = CAPS.blk_cap
+    B = cap + ops.SPEC_PAD
+    C = cu_const("plan_speculative", "CLUSTER")
+    L = (-(-B // C) + 31) // 32 * 32   # offsets per CTA
+    longest = b"".join(bytes([0]) + rng.integers(0, 256, 2, np.uint8).tobytes()
+                       for _ in range(-(-cap // 3)))[:cap]
+    k = 2 * L // 255 + 1
+    head = bytes([0xF0]) + b"\xff" * k + bytes([7])
+    lit = rng.integers(0, 256, 255 * k + 7 + 15, np.uint8).tobytes()
+    jump = head + lit + b"\x01\x00"
+    rows = [longest, jump + chain_row(rng, cap - len(jump))]
+    rows += [chain_row(rng, cap, [q * L + d for q in range(1, C)]) for d in (0, -1, 1, -3)]
+    seg = cu_const("plan_speculative", "SEG")
+    rows += [chain_row(rng, cap, [q * L + g * seg + d for q in range(C)
+                                  for g in range(1, -(-L // seg))]) for d in (0, -1)]
+    noise = rng.integers(0, 256, cap, np.uint8).tobytes()
+    rows += [noise[:n] for n in (0, 1, 2, 3, cap)]
+    rows.append(np.where(rng.random(cap) < 0.7, 255,
+                         rng.integers(0, 256, cap)).astype(np.uint8).tobytes())
+    return rows
+
+
 def phase_decode_kernels() -> dict:
     """The read path's kernels against their plain versions on the card,
     exact; times at M = 8 (the engine's micro-batch) and M = 64."""
@@ -627,6 +722,36 @@ def phase_decode_kernels() -> dict:
         got = k_plan.plan_speculative(sb, sn)
         torch.cuda.synchronize()
         note("plan_speculative", *zip(got, k_plan.plan_speculative_plain(sb, sn)))
+    # ... and the rows that stress its chunked chain select
+    hard = spec_hard_rows()
+    for garbage in (False, True):
+        hb, hn = stack_rows(hard, CAPS.blk_cap + ops.SPEC_PAD, garbage, SEED + 22)
+        got = k_plan.plan_speculative(hb, hn)
+        torch.cuda.synchronize()
+        note("plan_speculative", *zip(got, k_plan.plan_speculative_plain(hb, hn)))
+        check(int(got[0][0].sum()) == -(-CAPS.blk_cap // 3),
+              "plan_speculative: the longest chain's header count")
+    # ... at a width not a multiple of 16, so that rows past the first start
+    # off 16-byte alignment and take the kernel's byte staging
+    for garbage in (False, True):
+        ob, on = stack_rows(rows[:16], CAPS.blk_cap + ops.SPEC_PAD + 3, garbage, SEED + 25)
+        got = k_plan.plan_speculative(ob, on)
+        torch.cuda.synchronize()
+        note("plan_speculative", *zip(got, k_plan.plan_speculative_plain(ob, on)))
+    # ... at the widest row the kernel takes; the wrapper refuses one wider
+    lim = k_plan.max_b()
+    check(90_000 < lim < k_plan.MAX_B, f"plan_speculative: max_b() = {lim}")
+    r = np.random.default_rng(SEED + 23)
+    wide = [chain_row(r, lim - 1), r.integers(0, 256, lim - 1, np.uint8).tobytes()]
+    wb, wn = stack_rows(wide, lim, True, SEED + 24)
+    got = k_plan.plan_speculative(wb, wn)
+    torch.cuda.synchronize()
+    note("plan_speculative", *zip(got, k_plan.plan_speculative_plain(wb, wn)))
+    try:
+        k_plan.plan_speculative(stack_rows(wide, lim + 1)[0], wn)
+        check(False, f"plan_speculative took B = {lim + 1} > max_b()")
+    except ValueError:
+        pass
     # the fused plan + decode + CRC of the engine, card against CPU
     mo = torch.full((len(rows),), MAX_BLOCK, dtype=torch.int32, device=DEV)
     kw = dict(out_cap=CAPS.out_cap, max_lit=CAPS.max_lit,
@@ -699,7 +824,7 @@ def phase_decode_kernels() -> dict:
         times_M64={k: {f: v[f] for f in TIME_KEYS} for k, v in timing[64].items()},
         crc32_long_row=dict(bytes=long_row.size, **{f: crc_long[f] for f in TIME_KEYS}),
         shapes=dict(B=CAPS.blk_cap, B_spec=CAPS.blk_cap + ops.SPEC_PAD,
-                    K=CAPS.out_cap, rows_spec=len(rows)))
+                    K=CAPS.out_cap, rows_spec=len(rows), rows_spec_hard=len(hard)))
     return res
 
 
@@ -992,8 +1117,8 @@ def phase_path_full(data: bytes, micro_batch: int) -> dict:
     verified = verify_frame(frame, data, sample=96, seed=SEED + micro_batch)
     check(st.raw_blocks > 0, "no raw passthrough block in the run")
     say("path_full", micro_batch=micro_batch, bytes_in=len(data),
-        frame_bytes=len(frame), ratio=len(data) / len(frame), seconds=seconds,
-        input_GB_per_s=len(data) / seconds / 1e9,
+        frame_bytes=len(frame), frame_sha256=hashlib.sha256(frame).hexdigest(),
+        ratio=len(data) / len(frame), seconds=seconds, input_GB_per_s=len(data) / seconds / 1e9,
         blocks_per_s=st.blocks / seconds,
         host_bytes_per_input_byte=st.host_bytes / len(data),
         stats=st.as_dict(), launches=launches, verified=verified,
@@ -1084,7 +1209,8 @@ def phase_path_staged_full(data: bytes, full_frame: bytes) -> dict:
                          peak_device_MiB=torch.cuda.max_memory_allocated() / 2**20,
                          stats=st.as_dict(), launches=launches))
     say("path_staged_full", bytes_in=len(data), frame_bytes=len(full_frame),
-        micro_batch=32, frames_equal_path_full=True, runs=runs)
+        frame_sha256=hashlib.sha256(full_frame).hexdigest(), micro_batch=32,
+        frames_equal_path_full=True, runs=runs)
     return main
 
 

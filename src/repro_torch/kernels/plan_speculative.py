@@ -15,6 +15,7 @@ plain version only for CPU tensors.  `launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,9 +23,15 @@ from . import _build
 from .ref import plan_fields_ref as plan_speculative_plain
 
 __all__ = ["plan_speculative", "plan_speculative_plain", "launches",
-           "reset_launches", "FIELDS"]
+           "reset_launches", "max_b", "FIELDS"]
 
 launches = 0  # kernel launches since import / the last reset_launches()
+
+# The largest B for which the kernel's chain select (every offset reachable
+# from 0) equals the plain version's 16 doubling rounds: each hop advances at
+# least 3 bytes, so B < 3 * 2^16.  The kernel's shared memory caps B lower,
+# near 94,000: `max_b()`.
+MAX_B = 196607
 
 FIELDS = ("is_start", "lit_start", "lit_len", "ls_end", "off", "mlen", "flags")
 
@@ -38,17 +45,27 @@ def _lib():
     lib = _build.load("plan_speculative")
     fn = lib.plan_speculative_launch
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 2 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def max_b() -> int:
+    """The largest B the CUDA kernel takes: MAX_B, or less where its shared
+    memory runs out (about 94,000).  Builds the kernel on first use."""
+    fn = _build.load("plan_speculative").plan_speculative_max_b
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return int(fn())
 
 
 def plan_speculative(blocks: torch.Tensor, n: torch.Tensor):
     """Candidate header at every offset + chain select, for M blocks.
 
     blocks : (M, B) uint8 payloads; B must be strictly greater than every
-             n (the run table is read at index n)
+             n (the run table is read at index n); the CUDA kernel takes B
+             up to about 94,000
     n      : (M,) int32 payload lengths, 0 <= n < B
 
     Returns the seven (M, B) int32 tensors of `FIELDS`, equal to
@@ -69,22 +86,20 @@ def plan_speculative(blocks: torch.Tensor, n: torch.Tensor):
         raise RuntimeError(f"unsupported device {dev}")
 
     M, B = blocks.shape
-    W = (B + 31) // 32
-    if B < 1 or ((B + 15) // 16) * 16 + 8 * W + 4096 > _build.SMEM_PER_CTA:
-        raise ValueError(f"the CUDA kernel takes 1 <= B <= about 180,000, got {B}")
+    if B < 1 or B > max_b():
+        raise ValueError(f"the CUDA kernel takes 1 <= B <= {max_b()} (its "
+                         f"shared memory; the chain select alone allows "
+                         f"{MAX_B}), got {B}")
     if not (blocks.is_contiguous() and n.is_contiguous()):
         raise ValueError("blocks and n must be contiguous")
     outs = [torch.empty((M, B), dtype=torch.int32, device=dev) for _ in FIELDS]
     if M == 0:
         return tuple(outs)
-    scratch = torch.empty((3, M, B), dtype=torch.int32, device=dev)
     fn = _lib()
     global launches
     with torch.cuda.device(dev):
         err = fn(blocks.data_ptr(), n.data_ptr(),
-                 *(o.data_ptr() for o in outs),
-                 scratch[0].data_ptr(), scratch[1].data_ptr(),
-                 scratch[2].data_ptr(), M, B,
+                 *(o.data_ptr() for o in outs), M, B,
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "plan_speculative")
     launches += 1
