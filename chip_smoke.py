@@ -312,7 +312,19 @@ def phase_build() -> None:
              for name, log in _build.build_log.items()}
     say("build", seconds=round(time.perf_counter() - t0, 3),
         nvcc_seconds=_build.build_seconds,
-        libraries=[p.name for p in paths.values()], ptxas=ptxas)
+        libraries=[p.name for p in paths.values()], ptxas=ptxas,
+        registers_and_spills={name: ptxas_summary(log)
+                              for name, log in _build.build_log.items()})
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers per thread and spill bytes of each kernel function that
+    `nvcc -Xptxas -v` reports in one build log (a template gives one entry
+    per instantiation)."""
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    stores = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+    loads = [int(x) for x in re.findall(r"(\d+) bytes spill loads", log)]
+    return dict(registers=regs, spill_store_bytes=stores, spill_load_bytes=loads)
 
 
 def phase_kernels() -> dict:
@@ -382,6 +394,8 @@ def phase_kernels() -> dict:
         note("window_select", *zip(k_select.window_select(v, got[1], pws),
                                    k_select.window_select_plain(v, got[1], pws)))
 
+    fused_edge_cases(note)
+
     # window_select: every pws of {1, ..., 2048} on rows that stress the
     # chunked form and take its sequential walk; P that leaves chunks ragged
     # or fewer chunks than CTAs
@@ -428,9 +442,85 @@ def phase_kernels() -> dict:
     }
     for name, w in work.items():
         res[name].update(timed(w, name))
+    # fused_compress also on 32 blocks of the data the main path compresses,
+    # and at every cluster size its plan can take (adversarial inputs)
+    mb, mn = main_path_blocks(32)
+    main_len = k_fused.fused_compress(mb, mn, P, hb, pws, mm)[1]
+    main_ext = int((main_len[main_len > 0] - MIN_MATCH + 1).sum())
+    main = timed(dict(work["fused_compress"], ops=M * P * 20 + 2 * main_ext,
+                      run=lambda: k_fused.fused_compress(mb, mn, P, hb, pws, mm),
+                      plain=lambda: k_fused.fused_compress_plain(mb, mn, P, hb, pws, mm)),
+                 "fused_compress")
+    res["fused_compress"]["main_path_data"] = {f: main[f] for f in TIME_KEYS}
+    res["fused_compress"]["device_ms_by_cluster"] = cluster_sweep(
+        k_fused, (4, 2, 8, 4), "fused_compress", work["fused_compress"]["run"])
     say("kernels_check", shapes=dict(M=M, B=B, P=P, K=K, S=S, W=W),
         tolerance=0, results=res)
     return res
+
+
+def cluster_sweep(module, sizes, name: str, run) -> list:
+    """Profiler device ms per launch of `run` with the wrapper's cluster
+    size set to each of `sizes` in turn (one card, one call: the order
+    repeats the first size last), the wrapper's own choice restored after."""
+    keep = module._cluster
+    out = []
+    try:
+        for c in sizes:
+            module._cluster = c
+            out.append([c, kernel_device_ms(name, run)])
+    finally:
+        module._cluster = keep
+    return out
+
+
+def main_path_blocks(m: int):
+    """(m, MAX_BLOCK + _PAD) uint8 + (m,) int32 on the card: 64 KB blocks
+    of the data the main path compresses (`seeded_data`)."""
+    data = np.frombuffer(seeded_data(m * MAX_BLOCK, SEED + 9), np.uint8)
+    stack = np.zeros((m, MAX_BLOCK + _PAD), np.uint8)
+    stack[:, :MAX_BLOCK] = data.reshape(m, MAX_BLOCK)
+    return (torch.from_numpy(stack).to(DEV),
+            torch.full((m,), MAX_BLOCK, dtype=torch.int32, device=DEV))
+
+
+def fused_edge_cases(note) -> None:
+    """fused_compress at the edges of its cluster layout: one block and a
+    last cluster alone (M = 1, 33); rows that start 1, 2, 3 and 5 bytes off
+    16-byte alignment; n at, just past and inside every CTA's range; P =
+    6144 (three units of 2048: windows of 2048 take one CTA, windows of 8 a
+    non-power-of-two segment count); P = 131072 (uint32 candidates, kept
+    in the cand output)."""
+    hb, mm, pws = DEFAULTS
+    args = (MAX_BLOCK, hb, pws, mm)
+
+    def both(blocks, ns, *a):
+        got = k_fused.fused_compress(blocks, ns, *a)
+        torch.cuda.synchronize()
+        note("fused_compress", *zip(got, k_fused.fused_compress_plain(blocks, ns, *a)))
+
+    for m in (1, 33):
+        both(*kernel_blocks(m, garbage=True), *args)
+    blocks, ns = kernel_blocks(8, garbage=True)
+    flat = torch.zeros(blocks.numel() + 16, dtype=torch.uint8, device=DEV)
+    for off in (1, 2, 3, 5):
+        view = flat[off: off + blocks.numel()].view(blocks.shape)
+        view.copy_(blocks)
+        both(view, ns, *args)
+    span = MAX_BLOCK // k_fused._plan(blocks.shape[1], *args[:3]).cluster
+    starts = [q * span + d for q in range(MAX_BLOCK // span) for d in (0, 4, 5, 37, 2000)]
+    blocks, _ = kernel_blocks(len(starts), garbage=True)
+    both(blocks, torch.tensor(starts, dtype=torch.int32, device=DEV), *args)
+    small, sn = kernel_blocks(8, garbage=True)
+    small = small[:, : 6144 + _PAD].contiguous()
+    sn = sn.clamp(max=6144)
+    for p_ws in (2048, 8):
+        both(small, sn, 6144, hb, p_ws, mm)
+    wide, _ = kernel_blocks(8, garbage=True)
+    wide = wide[:, :MAX_BLOCK].reshape(4, 2 * MAX_BLOCK)
+    wide = torch.cat([wide, torch.zeros((4, _PAD), dtype=torch.uint8, device=DEV)], 1)
+    wn = torch.tensor([2 * MAX_BLOCK, 70001, MAX_BLOCK + 3, 9], dtype=torch.int32, device=DEV)
+    both(wide, wn, 2 * MAX_BLOCK, 6, pws, mm)
 
 
 # -- the staged compress path -------------------------------------------------
@@ -686,6 +776,70 @@ def spec_hard_rows() -> list[bytes]:
     return rows
 
 
+def wave_hard_rows(K: int, B: int, seed: int):
+    """(M, B) blocks, (M, K) lit_blk and ptr, (M,) totals on the card for
+    the decode_wave kernel's cluster layout: the all-zero block's RLE chain
+    (depth K - 1), a chain through both sides of every slice boundary of
+    clusters of 8, 4 and 2 CTAs in shuffled order (hops that cross slices
+    both ways), a permutation (cycles only), forward pointers, random maps
+    with lit_blk out of range and a ragged total."""
+    rng = np.random.default_rng(seed)
+    k = np.arange(K)
+    lit = rng.integers(0, B, K)
+    rows = [(lit, np.maximum(k - 1, 0), K)]
+    for C in (8, 4, 2):
+        S = max(cu_const("decode_wave", "MIN_SLICE"), 1 << (-(-K // C) - 1).bit_length())
+        edges = [e for q in range(1, C) if q * S < K for e in (q * S - 1, q * S)]
+        order = rng.permutation(np.array(edges + [0, K - 1]))
+        for fill in (k, np.maximum(k - 3, 0)):
+            p = fill.copy()
+            p[order[0]] = order[0]
+            p[order[1:]] = order[:-1]
+            rows.append((lit, p, K))
+    rows.append((lit, rng.permutation(K), K))
+    rows.append((lit, np.minimum(k + rng.integers(1, 50, K), K - 1), K - 7))
+    rows.append((rng.integers(-2 * B, 2 * B, K), rng.integers(0, K, K),
+                 int(rng.integers(0, K + 1))))
+    t = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(DEV)  # noqa: E731
+    blocks = torch.from_numpy(rng.integers(0, 256, (len(rows), B), np.uint8)).to(DEV)
+    return (blocks, t(np.stack([r[0] for r in rows])), t(np.stack([r[1] for r in rows])),
+            t([r[2] for r in rows]))
+
+
+def wave_edge_cases(note, blk, lit_blk, ptr, total, payloads, originals) -> None:
+    """decode_wave at the edges of its cluster layout: the hard rows at K =
+    65536 and K = 1021 (a ragged last slice) at every rounds of 0-16, with
+    the kernel's own cluster choice and with 8, 4 and 2 CTAs forced; one
+    block (M = 1) and 133 blocks (more than one wave of clusters of 2)."""
+    def both(b, l, p, t, rounds):
+        out = k_wave.decode_wave(b, l, p, t, rounds)
+        torch.cuda.synchronize()
+        note("decode_wave", (out, k_wave.decode_wave_plain(b, l, p, t, rounds)))
+        return out
+
+    keep = k_wave._cluster
+    try:
+        for K in (CAPS.out_cap, 1021):
+            hard = wave_hard_rows(K, 300, SEED + K)
+            for c in (keep, 8, 4, 2):
+                k_wave._cluster = c
+                for rounds in (range(17) if c == keep else (5, 16)):
+                    both(*hard, rounds)
+    finally:
+        k_wave._cluster = keep
+    out = both(blk[:1], lit_blk[:1], ptr[:1], total[:1], 16)
+    check(out[0, : len(originals[0])].cpu().numpy().tobytes() == originals[0],
+          "decode_wave M = 1 row != input")
+    reps = -(-133 // blk.shape[0])
+    big = [x.repeat(reps, *([1] * (x.dim() - 1)))[:133].contiguous()
+           for x in (blk, lit_blk, ptr, total)]
+    out = both(*big, 16)
+    host = out.cpu().numpy()
+    for j in range(0, 133, 11):
+        o = originals[j % blk.shape[0]]
+        check(host[j, : len(o)].tobytes() == o, f"decode_wave M = 133 row {j} != input")
+
+
 def phase_decode_kernels() -> dict:
     """The read path's kernels against their plain versions on the card,
     exact; times at M = 8 (the engine's micro-batch) and M = 64."""
@@ -713,6 +867,8 @@ def phase_decode_kernels() -> dict:
         out = k_wave.decode_wave(blk[:8], g_lit, g_ptr, g_tot, rounds)
         torch.cuda.synchronize()
         note("decode_wave", (out, k_wave.decode_wave_plain(blk[:8], g_lit, g_ptr, g_tot, rounds)))
+
+    wave_edge_cases(note, blk, lit_blk, ptr, total, payloads, originals)
 
     # plan_speculative: valid, truncated, flipped, 0xFF runs, tiny n; zeros
     # and noise past n
@@ -813,6 +969,16 @@ def phase_decode_kernels() -> dict:
         }
         timing[M] = {name: timed(w, name) for name, w in work.items()}
         timing[M]["decode_wave"]["depth_needed"] = depth
+        # the same launch without rounds (staging and output alone), and
+        # random maps, where no round finds a fixed point and all 16 run
+        g = torch.from_numpy(rng.integers(0, K, (M, K)).astype(np.int32)).to(DEV)
+        timing[M]["decode_wave"]["device_ms_rounds0"] = kernel_device_ms(
+            "decode_wave", lambda: k_wave.decode_wave(blk, lit_blk, ptr, total, 0))
+        timing[M]["decode_wave"]["device_ms_random16"] = kernel_device_ms(
+            "decode_wave", lambda: k_wave.decode_wave(blk, lit_blk, g, total, 16))
+        timing[M]["decode_wave"]["device_ms_by_cluster"] = cluster_sweep(
+            k_wave, (8, 4, 8) if M == 8 else (2, 4, 2), "decode_wave",
+            work["decode_wave"]["run"])
     lr = torch.tensor([long_row.size], dtype=torch.int32, device=DEV)
     crc_long = timed(dict(bytes=long_row.size + 12, ops=2 * long_row.size,
                           run=lambda: k_crc.crc32(lr_dev, lr),
@@ -821,7 +987,8 @@ def phase_decode_kernels() -> dict:
     for name in res:
         res[name].update(timing[8][name])
     say("decode_kernels_check", tolerance=0, results=res,
-        times_M64={k: {f: v[f] for f in TIME_KEYS} for k, v in timing[64].items()},
+        times_M64={k: {f: v[f] for f in v if f not in ("bytes", "operations")}
+                   for k, v in timing[64].items()},
         crc32_long_row=dict(bytes=long_row.size, **{f: crc_long[f] for f in TIME_KEYS}),
         shapes=dict(B=CAPS.blk_cap, B_spec=CAPS.blk_cap + ops.SPEC_PAD,
                     K=CAPS.out_cap, rows_spec=len(rows), rows_spec_hard=len(hard)))

@@ -12,6 +12,7 @@ plain version only for CPU tensors.  `launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -27,8 +28,20 @@ launches = 0  # kernel launches since import / the last reset_launches()
 
 # Dynamic shared memory one CTA may ask for on sm_90 (227 KB).
 _SMEM_LIMIT = 232448
+CLUSTER = 4            # CTAs per block (csrc `CLUSTER`), where P allows it
 _MAX_SEGMENTS = 32     # one warp per segment, 1024 threads per CTA
 _GLOBAL_SEGMENTS = 8   # segments when the tables live in device memory
+_cluster = CLUSTER     # CTAs per block for the next launches
+
+
+class Plan(NamedTuple):
+    cluster: int           # CTAs per block
+    nseg: int              # segments (warps that walk) per CTA
+    tab_off: int           # shared-memory offset of the tables
+    lc_off: int            # ... of the segment-local candidates (uint16)
+    smem_bytes: int        # dynamic shared memory per CTA
+    tables_in_shared: bool
+    wide: bool             # uint32 segment-local candidates (P > 65536)
 
 
 def reset_launches() -> None:
@@ -36,30 +49,53 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _plan(B: int, P: int, hash_bits: int, pws: int):
-    """(nseg, block_bytes, smem_bytes, tables_in_shared) for one launch.
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
 
-    The block's bytes always live in shared memory; the `nseg` per-segment
-    tables join them while they fit, halving nseg as needed.  When not even
-    one table fits, the tables move to a device-memory scratch.
+
+def _divisor_at_most(units: int, cap: int) -> int:
+    return next(d for d in range(min(units, cap), 0, -1) if units % d == 0)
+
+
+def _plan(B: int, P: int, hash_bits: int, pws: int, cluster: int | None = None) -> Plan:
+    """The launch plan of one call; mirrors the kernel's layout.
+
+    Each CTA of a cluster owns P / cluster positions, a whole number of
+    units of max(32, pws) positions (the cluster shrinks by halves until it
+    is); its warps walk `nseg` segments, a divisor of its units, at most 32.
+    Shared memory holds the row's first P + 8 bytes (and up to 15 of
+    misalignment, rounded up to 16 bytes), then the nseg + 1 uint32 tables
+    (the segment tables and the CTA's summary), then the segment-local
+    candidates (uint16; for P > 65536 they live in the `cand` output).  Tables that do
+    not fit with one segment move to a device-memory scratch.
     """
-    block_bytes = ((B + 6) // 4 * 4 + 15) // 16 * 16
-    table_bytes = 4 << hash_bits
-    cap = max(1, min(_MAX_SEGMENTS, P // max(pws, 32)))
-    nseg = 1 << (cap.bit_length() - 1)
-    while nseg > 1 and block_bytes + nseg * table_bytes > _SMEM_LIMIT:
-        nseg //= 2
-    if block_bytes + nseg * table_bytes <= _SMEM_LIMIT:
-        return nseg, block_bytes, block_bytes + nseg * table_bytes, True
-    nseg = min(_GLOBAL_SEGMENTS, 1 << (cap.bit_length() - 1))
-    return nseg, block_bytes, block_bytes, False
+    unit = max(32, pws)
+    units = P // unit
+    C = cluster or _cluster
+    while C > 1 and units % C:
+        C //= 2
+    span_units = units // C
+    wide = P > 65536
+    block_bytes = P + 32
+    lc_bytes = 0 if wide else _round16((P // C) * 2)
+    tables = lambda s: _round16((s + 1) * (4 << hash_bits))  # noqa: E731
+    nseg = _divisor_at_most(span_units, _MAX_SEGMENTS)
+    while nseg > 1 and block_bytes + tables(nseg) + lc_bytes > _SMEM_LIMIT:
+        nseg = _divisor_at_most(span_units, nseg - 1)
+    if block_bytes + tables(nseg) + lc_bytes <= _SMEM_LIMIT:
+        tab_bytes = tables(nseg)
+    else:
+        nseg = _divisor_at_most(span_units, _GLOBAL_SEGMENTS)
+        tab_bytes = 0
+    return Plan(C, nseg, block_bytes, block_bytes + tab_bytes,
+                block_bytes + tab_bytes + lc_bytes, tab_bytes > 0, wide)
 
 
 def _lib():
     lib = _build.load("fused_compress")
     fn = lib.fused_compress_launch
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -107,19 +143,24 @@ def fused_compress(blocks_u8: torch.Tensor, ns: torch.Tensor, positions: int,
     dev = blocks_u8.device
     cand = torch.empty((M, P), dtype=torch.int32, device=dev)
     lengths = torch.empty((M, P), dtype=torch.int32, device=dev)
-    if M == 0:
+    if M == 0 or P == 0:
         return cand, lengths
-    nseg, block_bytes, smem_bytes, in_shared = _plan(B, P, hash_bits, pws)
-    scratch = None if in_shared else torch.empty(
-        (M, nseg, 1 << hash_bits), dtype=torch.int32, device=dev)
+    plan = _plan(B, P, hash_bits, pws)
+    if plan.smem_bytes > _SMEM_LIMIT:
+        raise ValueError(f"the CUDA kernel stages P + 32 bytes of a row in "
+                         f"shared memory; P={P} is too large")
+    scratch = None if plan.tables_in_shared else torch.empty(
+        (M, plan.cluster, plan.nseg + 1, 1 << hash_bits),
+        dtype=torch.int32, device=dev)
     fn = _lib()
     global launches
     with torch.cuda.device(dev):
         err = fn(blocks_u8.data_ptr(), ns.data_ptr(), cand.data_ptr(),
                  lengths.data_ptr(),
                  None if scratch is None else scratch.data_ptr(),
-                 M, B, P, hash_bits, pws, max_match, nseg, block_bytes,
-                 smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
+                 M, B, P, hash_bits, pws, max_match, plan.cluster, plan.nseg,
+                 plan.tab_off, plan.lc_off, plan.smem_bytes, int(plan.wide),
+                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "fused_compress")
     launches += 1
     return cand, lengths

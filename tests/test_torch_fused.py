@@ -152,11 +152,13 @@ def test_launch_plan_fits_shared_memory():
     B = MAX_BLOCK + 71
     for hb, pws in [(8, 8), (6, 8), (10, 4), (12, 8), (8, 16), (13, 8),
                     (16, 8), (8, 2048), (8, 64)]:
-        nseg, block_bytes, smem, in_shared = tfused._plan(B, MAX_BLOCK, hb, pws)
-        assert nseg >= 1 and nseg & (nseg - 1) == 0
-        assert block_bytes >= B + 3 and block_bytes % 16 == 0
-        assert smem <= tfused._SMEM_LIMIT
-        assert (MAX_BLOCK // nseg) % max(32, pws) == 0
-        assert in_shared == (smem > block_bytes)
-    assert tfused._plan(B, MAX_BLOCK, 8, 8)[0] == 32
-    assert tfused._plan(B, MAX_BLOCK, 16, 8)[3] is False
+        plan = tfused._plan(B, MAX_BLOCK, hb, pws)
+        assert 1 <= plan.cluster <= 8 and 1 <= plan.nseg <= 32
+        # each CTA's range and each segment are whole windows
+        assert (MAX_BLOCK // plan.cluster) % (plan.nseg * max(32, pws)) == 0
+        assert plan.tab_off >= MAX_BLOCK + 32 and plan.tab_off % 16 == 0
+        assert plan.lc_off % 16 == 0 and plan.smem_bytes <= tfused._SMEM_LIMIT
+        assert plan.tables_in_shared == (plan.lc_off > plan.tab_off)
+        assert not plan.wide
+    assert tfused._plan(B, MAX_BLOCK, 8, 8)[:2] == (tfused.CLUSTER, 32)
+    assert tfused._plan(B, MAX_BLOCK, 16, 8).tables_in_shared is False
