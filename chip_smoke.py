@@ -442,8 +442,7 @@ def phase_kernels() -> dict:
     }
     for name, w in work.items():
         res[name].update(timed(w, name))
-    # fused_compress also on 32 blocks of the data the main path compresses,
-    # and at every cluster size its plan can take (adversarial inputs)
+    # fused_compress also on 32 blocks of the data the main path compresses
     mb, mn = main_path_blocks(32)
     main_len = k_fused.fused_compress(mb, mn, P, hb, pws, mm)[1]
     main_ext = int((main_len[main_len > 0] - MIN_MATCH + 1).sum())
@@ -452,26 +451,9 @@ def phase_kernels() -> dict:
                       plain=lambda: k_fused.fused_compress_plain(mb, mn, P, hb, pws, mm)),
                  "fused_compress")
     res["fused_compress"]["main_path_data"] = {f: main[f] for f in TIME_KEYS}
-    res["fused_compress"]["device_ms_by_cluster"] = cluster_sweep(
-        k_fused, (4, 2, 8, 4), "fused_compress", work["fused_compress"]["run"])
     say("kernels_check", shapes=dict(M=M, B=B, P=P, K=K, S=S, W=W),
         tolerance=0, results=res)
     return res
-
-
-def cluster_sweep(module, sizes, name: str, run) -> list:
-    """Profiler device ms per launch of `run` with the wrapper's cluster
-    size set to each of `sizes` in turn (one card, one call: the order
-    repeats the first size last), the wrapper's own choice restored after."""
-    keep = module._cluster
-    out = []
-    try:
-        for c in sizes:
-            module._cluster = c
-            out.append([c, kernel_device_ms(name, run)])
-    finally:
-        module._cluster = keep
-    return out
 
 
 def main_path_blocks(m: int):
@@ -807,33 +789,36 @@ def wave_hard_rows(K: int, B: int, seed: int):
 
 
 def wave_edge_cases(note, blk, lit_blk, ptr, total, payloads, originals) -> None:
-    """decode_wave at the edges of its cluster layout: the hard rows at K =
-    65536 and K = 1021 (a ragged last slice) at every rounds of 0-16, with
-    the kernel's own cluster choice and with 8, 4 and 2 CTAs forced; one
-    block (M = 1) and 133 blocks (more than one wave of clusters of 2)."""
+    """decode_wave at the edges of its cluster layout.  The kernel takes 8,
+    4 or 2 CTAs per block, the most whose M x C CTAs fit the card's SMs, so
+    M picks the cluster: the hard rows at K = 65536 and K = 1021 (a ragged
+    last slice) at every rounds of 0-16 as they are (clusters of 8), and
+    repeated to the most blocks that take clusters of 4 and the fewest that
+    take clusters of 2; one block (M = 1) and 133 blocks (more than one wave
+    of clusters of 2)."""
     def both(b, l, p, t, rounds):
         out = k_wave.decode_wave(b, l, p, t, rounds)
         torch.cuda.synchronize()
         note("decode_wave", (out, k_wave.decode_wave_plain(b, l, p, t, rounds)))
         return out
 
-    keep = k_wave._cluster
-    try:
-        for K in (CAPS.out_cap, 1021):
-            hard = wave_hard_rows(K, 300, SEED + K)
-            for c in (keep, 8, 4, 2):
-                k_wave._cluster = c
-                for rounds in (range(17) if c == keep else (5, 16)):
-                    both(*hard, rounds)
-    finally:
-        k_wave._cluster = keep
+    def repeat_rows(tensors, m):
+        reps = -(-m // tensors[0].shape[0])
+        return [x.repeat(reps, *([1] * (x.dim() - 1)))[:m].contiguous() for x in tensors]
+
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    for K in (CAPS.out_cap, 1021):
+        hard = wave_hard_rows(K, 300, SEED + K)
+        check(8 * hard[0].shape[0] <= sms, "decode_wave hard rows take clusters of 8")
+        for rounds in range(17):
+            both(*hard, rounds)
+        for m in (sms // 4, sms // 4 + 1):   # clusters of 4, then of 2
+            for rounds in (5, 16):
+                both(*repeat_rows(hard, m), rounds)
     out = both(blk[:1], lit_blk[:1], ptr[:1], total[:1], 16)
     check(out[0, : len(originals[0])].cpu().numpy().tobytes() == originals[0],
           "decode_wave M = 1 row != input")
-    reps = -(-133 // blk.shape[0])
-    big = [x.repeat(reps, *([1] * (x.dim() - 1)))[:133].contiguous()
-           for x in (blk, lit_blk, ptr, total)]
-    out = both(*big, 16)
+    out = both(*repeat_rows((blk, lit_blk, ptr, total), 133), 16)
     host = out.cpu().numpy()
     for j in range(0, 133, 11):
         o = originals[j % blk.shape[0]]
@@ -976,9 +961,6 @@ def phase_decode_kernels() -> dict:
             "decode_wave", lambda: k_wave.decode_wave(blk, lit_blk, ptr, total, 0))
         timing[M]["decode_wave"]["device_ms_random16"] = kernel_device_ms(
             "decode_wave", lambda: k_wave.decode_wave(blk, lit_blk, g, total, 16))
-        timing[M]["decode_wave"]["device_ms_by_cluster"] = cluster_sweep(
-            k_wave, (8, 4, 8) if M == 8 else (2, 4, 2), "decode_wave",
-            work["decode_wave"]["run"])
     lr = torch.tensor([long_row.size], dtype=torch.int32, device=DEV)
     crc_long = timed(dict(bytes=long_row.size + 12, ops=2 * long_row.size,
                           run=lambda: k_crc.crc32(lr_dev, lr),

@@ -50,7 +50,10 @@
 // Bound: bytes.  The function must read the block (B), lit_blk and ptr
 // (4K each) and write K bytes per row; the rounds run in shared memory.
 // What bounds it now: the rounds, each a dependent local-then-remote
-// shared-memory gather per entry followed by a cluster barrier.
+// shared-memory gather per entry followed by a cluster barrier.  Random
+// maps that run all 16 rounds (hops mostly to other CTAs) are slower than
+// a design that keeps the whole table in one CTA; chains that point
+// backwards, as valid blocks do, are faster.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -244,15 +247,12 @@ int cluster_for(int M) {
 }  // namespace
 
 // blocks (M, B) uint8, lit_blk (M, K) int32, ptr (M, K) int32, total (M,)
-// int32 -> out (M, K) uint8.  1 <= K <= 65536; `cluster` is the CTAs per
-// block (0: the largest of 8, 4, 2 that fits one wave), 1 to 8.
+// int32 -> out (M, K) uint8.  1 <= K <= 65536.
 extern "C" int decode_wave_launch(const void* blocks, const void* lit_blk,
                                   const void* ptr, const void* total, void* out,
-                                  int M, int B, int K, int rounds, int cluster,
-                                  void* stream) {
-  if (K < 1 || K > MAX_K || B < 0 || cluster < 0 || cluster > 8)
-    return (int)cudaErrorInvalidValue;
-  const int C = cluster ? cluster : cluster_for(M);
+                                  int M, int B, int K, int rounds, void* stream) {
+  if (K < 1 || K > MAX_K || B < 0) return (int)cudaErrorInvalidValue;
+  const int C = cluster_for(M);
   const int lg = slice_log2(K, C);
   const int smem = smem_bytes(lg);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;

@@ -25,11 +25,6 @@ __all__ = ["decode_wave", "decode_wave_plain", "launches", "reset_launches"]
 launches = 0  # kernel launches since import / the last reset_launches()
 
 MAX_K = 65536      # the uint16 pointer table holds positions < 2^16
-CLUSTER = 8        # CTAs per block, at most (csrc `CLUSTER`) ...
-CLUSTER_MIN = 2    # ... and at least (csrc `CLUSTER_MIN`): the largest slices
-MIN_SLICE = 16     # csrc `MIN_SLICE`
-HEADER = 16        # csrc `HEADER`: the round flags
-_cluster = 0       # CTAs per block for the next launches; 0: the kernel picks
 
 
 def reset_launches() -> None:
@@ -41,22 +36,10 @@ def _lib():
     lib = _build.load("decode_wave")
     fn = lib.decode_wave_launch
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
-
-
-def _slice_len(K: int, cluster: int = CLUSTER_MIN) -> int:
-    """Entries per CTA: the smallest power of two >= ceil(K / cluster) and
-    >= MIN_SLICE (csrc `slice_log2`)."""
-    return max(MIN_SLICE, 1 << max(0, -(-K // cluster) - 1).bit_length())
-
-
-def _smem_bytes(K: int, cluster: int = CLUSTER_MIN) -> int:
-    """Dynamic shared memory per CTA: the flags, two uint16 copies of the
-    slice and its literal bytes (csrc `smem_bytes`)."""
-    return HEADER + 5 * _slice_len(K, cluster)
 
 
 def decode_wave(blocks: torch.Tensor, lit_blk: torch.Tensor,
@@ -97,7 +80,7 @@ def decode_wave(blocks: torch.Tensor, lit_blk: torch.Tensor,
 
     M, B = blocks.shape
     K = ptr.shape[1]
-    if K > MAX_K or _smem_bytes(K) > _build.SMEM_PER_CTA:
+    if K > MAX_K:
         raise ValueError(f"the CUDA kernel takes K <= {MAX_K}; got K={K}")
     if not all(t.is_contiguous() for t in (blocks, lit_blk, ptr, total)):
         raise ValueError("blocks, lit_blk, ptr and total must be contiguous")
@@ -108,7 +91,7 @@ def decode_wave(blocks: torch.Tensor, lit_blk: torch.Tensor,
     global launches
     with torch.cuda.device(dev):
         err = fn(blocks.data_ptr(), lit_blk.data_ptr(), ptr.data_ptr(),
-                 total.data_ptr(), out.data_ptr(), M, B, K, rounds, _cluster,
+                 total.data_ptr(), out.data_ptr(), M, B, K, rounds,
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "decode_wave")
     launches += 1

@@ -31,7 +31,6 @@ _SMEM_LIMIT = 232448
 CLUSTER = 4            # CTAs per block (csrc `CLUSTER`), where P allows it
 _MAX_SEGMENTS = 32     # one warp per segment, 1024 threads per CTA
 _GLOBAL_SEGMENTS = 8   # segments when the tables live in device memory
-_cluster = CLUSTER     # CTAs per block for the next launches
 
 
 class Plan(NamedTuple):
@@ -71,7 +70,7 @@ def _plan(B: int, P: int, hash_bits: int, pws: int, cluster: int | None = None) 
     """
     unit = max(32, pws)
     units = P // unit
-    C = cluster or _cluster
+    C = cluster or CLUSTER
     while C > 1 and units % C:
         C //= 2
     span_units = units // C

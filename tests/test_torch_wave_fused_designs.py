@@ -69,6 +69,12 @@ def slice_log2(K: int, C: int) -> int:
     return lg
 
 
+def smem_bytes(K: int, C: int) -> int:
+    """Dynamic shared memory per CTA: the flags, two uint16 copies of the
+    slice and its literal bytes (csrc `smem_bytes`)."""
+    return DW["HEADER"] + 5 * (1 << slice_log2(K, C))
+
+
 def wave_model_np(block, lit_blk, ptr, total: int, rounds: int, C: int):
     """One row through the cluster decomposition: (out, rounds run)."""
     K, B = ptr.size, block.size
@@ -145,20 +151,18 @@ def wave_rows(K: int, B: int, seed: int, C: int):
 
 def test_decode_wave_constants_from_the_source():
     assert DW["MAX_K"] == kwave.MAX_K == 2**16
-    assert DW["CLUSTER"] == kwave.CLUSTER == 8 and DW["CLUSTER_MIN"] == kwave.CLUSTER_MIN
+    assert DW["CLUSTER"] == 8 and DW["CLUSTER_MIN"] == 2
     assert 2 * DW["THREADS"] <= DW["THREADS_ALONE"] <= 1024
-    assert DW["MIN_SLICE"] == kwave.MIN_SLICE and DW["HEADER"] == kwave.HEADER
     assert DW["MIN_SLICE"] % 16 == 0            # the output's 16-byte stores
     # the largest layout fits from 2 CTAs up: two uint16 copies and the
     # literal bytes of 32,768 entries (the launch refuses one CTA at K =
-    # 65536)
-    assert kwave._smem_bytes(MAX_BLOCK, 1) > DW["SMEM_MAX"]
+    # 65536, so the wrapper checks only MAX_K)
+    assert smem_bytes(MAX_BLOCK, 1) > DW["SMEM_MAX"]
     for C in (2, 4, 8):
-        assert kwave._slice_len(MAX_BLOCK, C) == 1 << slice_log2(MAX_BLOCK, C)
-        assert kwave._smem_bytes(MAX_BLOCK, C) <= DW["SMEM_MAX"]
-    assert kwave._smem_bytes(MAX_BLOCK) == 16 + 5 * 32768
+        assert smem_bytes(MAX_BLOCK, C) <= DW["SMEM_MAX"]
+    assert smem_bytes(MAX_BLOCK, DW["CLUSTER_MIN"]) == 16 + 5 * 32768
     # two CTAs share an SM from 4 per block up; a CTA of 2 fills one alone
-    assert 2 * kwave._smem_bytes(MAX_BLOCK, 4) <= DW["SMEM_MAX"] < 2 * kwave._smem_bytes(MAX_BLOCK)
+    assert 2 * smem_bytes(MAX_BLOCK, 4) <= DW["SMEM_MAX"] < 2 * smem_bytes(MAX_BLOCK, 2)
 
 
 @pytest.mark.parametrize("K,C", [(1021, 8), (1021, 4), (65536, 8), (65536, 4),
