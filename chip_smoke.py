@@ -508,6 +508,7 @@ def fused_edge_cases(note) -> None:
 # -- the staged compress path -------------------------------------------------
 
 STAGED_NS = (0, 1, 2, 3, 4, 5, 12, 13, 2500, MAX_BLOCK)
+MATCH_CAPS = (4, 5, 12, 20, 36, 68, 100)   # max_match values match_extend is held at
 
 
 def odd_candidates(rng, shape, B: int) -> torch.Tensor:
@@ -569,8 +570,9 @@ def match_extend_work(block, cand, valid, ns, lengths, max_match: int):
 def phase_staged_kernels() -> dict:
     """`fibhash` and `match_extend` against their plain versions on the card,
     exact, on the adversarial + corpus blocks (zeros and noise past n),
-    hash_bits over {1, 6, 8, 12, 13, 16} and max_match over {12, 20, 36, 68};
-    times at M = 32 and the engine defaults."""
+    hash_bits over {1, 6, 8, 12, 13, 16} and max_match over `MATCH_CAPS`,
+    `match_extend` also on rows of 240,000 bytes; times at M = 32 and the
+    engine defaults."""
     res, note = comparer(STAGED_KERNEL_MODULES)
     rng = np.random.default_rng(SEED + 10)
     hb, mm, pws = DEFAULTS
@@ -600,11 +602,15 @@ def phase_staged_kernels() -> dict:
             rng.integers(-2, MAX_BLOCK, cand.shape).astype(np.int32)).to(DEV)
         all_true = torch.ones_like(valid4)
         full_ns = torch.full_like(ns, MAX_BLOCK)
-        for m in (12, 20, 36, 68):
+        # ... and P not a multiple of 8 (one position at a time)
+        odd_p = MAX_BLOCK - 3
+        for m in MATCH_CAPS:
             for args in ((block, cand, valid4, ns),
                          (blocks, odd, odd_valid, odd_ns),
                          (blocks, odd, odd_valid.to(torch.uint8), ns),
-                         (zeros, zero_cand, all_true, full_ns)):
+                         (zeros, zero_cand, all_true, full_ns),
+                         (blocks, odd[:, :odd_p].contiguous(),
+                          odd_valid[:, :odd_p].contiguous(), odd_ns)):
                 got = k_ext.match_extend(*args, m)
                 torch.cuda.synchronize()
                 note("match_extend", (got, k_ext.match_extend_plain(
@@ -617,6 +623,17 @@ def phase_staged_kernels() -> dict:
         if not garbage:
             timing_inputs = dict(blocks=blocks, block=block, cand=cand,
                                  valid4=valid4, ns=ns)
+    # match_extend on rows of 240,000 bytes (wider than any block): repeats,
+    # garbage candidates
+    wide_b = 240_000
+    wb = torch.from_numpy(np.tile(rng.integers(0, 4, (2, wide_b // 8), np.uint8), 8)).to(DEV)
+    wc = odd_candidates(rng, (2, wide_b - 8), wide_b)
+    wv = torch.from_numpy(rng.random((2, wide_b - 8)) < 0.7).to(DEV)
+    wn = torch.tensor([wide_b, wide_b - 77], dtype=torch.int32, device=DEV)
+    for m in (5, 36):
+        got = k_ext.match_extend(wb, wc, wv, wn, m)
+        torch.cuda.synchronize()
+        note("match_extend", (got, k_ext.match_extend_plain(wb, wc, wv, wn, m)))
 
     t = timing_inputs
     (M, B), P = t["block"].shape, MAX_BLOCK
@@ -825,6 +842,121 @@ def wave_edge_cases(note, blk, lit_blk, ptr, total, payloads, originals) -> None
         check(host[j, : len(o)].tobytes() == o, f"decode_wave M = 133 row {j} != input")
 
 
+WIDE_CAPS = (DevicePlanCaps(blk_cap=98304), DevicePlanCaps(out_cap=131072))
+WIDE_PAYLOAD = 96_000   # a corrupt payload: past max_b() - SPEC_PAD, within blk_cap
+
+
+def plan_wide_cases(note, rows: list[bytes]):
+    """plan_speculative's wide kernel (rows wider than `max_b()`): the
+    read-path rows at the width `blk_cap=98304` gives (98,432), with noise
+    past n and a payload that fills the width; and a chain of 3-byte hops
+    longer than 3 * 2^16 bytes, where the plain version's 16 doubling rounds
+    mark only the first 2^16 headers.  Returns the timing inputs (8 rows)."""
+    B = WIDE_CAPS[0].blk_cap + ops.SPEC_PAD
+    check(B > k_plan.max_b(), "the wide caps must reach the wide kernel")
+    rng = np.random.default_rng(SEED + 26)
+    fill = rng.integers(0, 256, WIDE_PAYLOAD, np.uint8).tobytes()
+    wrows = rows[:14] + [fill, b"\xff" * (B - 1), fill[:3]]
+    for garbage in (False, True):
+        wb, wn = stack_rows(wrows, B, garbage, SEED + 27)
+        got = k_plan.plan_speculative(wb, wn)
+        torch.cuda.synchronize()
+        note("plan_speculative", *zip(got, k_plan.plan_speculative_plain(wb, wn)))
+    hops = 3 * (1 << 16) + 3000
+    chain = b"".join(bytes([0]) + rng.integers(0, 256, 2, np.uint8).tobytes()
+                     for _ in range(hops // 3))
+    cb, cn = stack_rows([chain, chain[:5000]], hops + 1)
+    got = k_plan.plan_speculative(cb, cn)
+    torch.cuda.synchronize()
+    note("plan_speculative", *zip(got, k_plan.plan_speculative_plain(cb, cn)))
+    check(int(got[0][0].sum()) == 1 << 16,
+          "plan_speculative wide: 16 rounds mark the first 2^16 headers")
+    return stack_rows(wrows[:8], B, False, SEED + 27)
+
+
+def wave_wide_cases(note) -> None:
+    """decode_wave's wide kernel (K > MAX_K): the hard rows at K = 131072
+    (out_cap=131072) at rounds 0, 1, 5, 16 and 17, and at a ragged K."""
+    for K in (WIDE_CAPS[1].out_cap, 2 * k_wave.MAX_K + 77):
+        hard = wave_hard_rows(K, 300, SEED + 28)
+        for rounds in (0, 1, 5, 16, 17):
+            out = k_wave.decode_wave(*hard, rounds)
+            torch.cuda.synchronize()
+            note("decode_wave", (out, k_wave.decode_wave_plain(*hard, rounds)))
+
+
+def crc_cases(note, rng) -> np.ndarray:
+    """crc32 against its plain version and binascii: ragged n (0..3, 4, 5,
+    15, 16, 17, 65535, 65536) at M = 1, 8, 64 and 133 (every row count a
+    read-path batch makes, and more); the data
+    pointer 1..15 bytes past 16-byte alignment (contiguous views with a
+    storage offset, rows of an odd width); three rows of 600,999 bytes and
+    one of 64 MiB + 5 bytes (many CTAs per row, n = K and K - 3).  Returns
+    the long row."""
+    def both(d, n):
+        got = k_crc.crc32(d, n)
+        torch.cuda.synchronize()
+        note("crc32", (got, k_crc.crc32_plain(d, n)))
+        host, nh = d.cpu().numpy(), n.cpu().numpy()
+        check(got.tolist() == [binascii.crc32(host[j, : nh[j]].tobytes())
+                               for j in range(len(nh))], "crc32 != binascii.crc32")
+
+    ragged = [0, 1, 2, 3, 4, 5, 15, 16, 17, 4096, 8191, 65535, MAX_BLOCK]
+    for m in (1, 8, 64, 133):
+        data = torch.from_numpy(rng.integers(0, 256, (m, MAX_BLOCK), np.uint8)).to(DEV)
+        n = torch.tensor([ragged[j % len(ragged)] if m > 1 else MAX_BLOCK
+                          for j in range(m)], dtype=torch.int32, device=DEV)
+        both(data, n)
+    flat = torch.from_numpy(rng.integers(0, 256, 8 * (MAX_BLOCK + 7) + 16, np.uint8)).to(DEV)
+    K = MAX_BLOCK + 7
+    n = torch.tensor([K, K - 1, K - 9, 0, 3, 4, 17, 40000], dtype=torch.int32, device=DEV)
+    for off in range(1, 16):
+        view = flat[off: off + 8 * K].view(8, K)
+        check(view.is_contiguous() and view.data_ptr() % 16 == off, "crc32 view offset")
+        both(view, n)
+    width = 600_999   # more than MAX_ITERS steps of a CTA: several CTAs per row
+    multi = torch.from_numpy(rng.integers(0, 256, (3, width), np.uint8)).to(DEV)
+    both(multi, torch.tensor([width, width - 5000, 3], dtype=torch.int32, device=DEV))
+    long_row = rng.integers(0, 256, LONG_CRC_ROW, np.uint8)
+    lr_dev = torch.from_numpy(long_row).to(DEV)[None]
+    for n in (long_row.size, long_row.size - 3):
+        both(lr_dev, torch.tensor([n], dtype=torch.int32, device=DEV))
+    return long_row
+
+
+def wide_times(spec_rows_wide, main_like: list[bytes]) -> dict:
+    """Times of the two wide kernels at M = 8, with their bounds: not on any
+    default path, so recorded, not tuned."""
+    sb, sn = spec_rows_wide
+    M, B = sb.shape
+    K = WIDE_CAPS[1].out_cap
+    plans = [to_device_plan(plan_block_fast(p), WIDE_CAPS[1]) for p in main_like[:M]]
+    blk, _ = stack_rows(main_like[:M], CAPS.blk_cap)
+    col = lambda f: torch.from_numpy(np.stack([getattr(d, f) for d in plans])).to(DEV)  # noqa: E731
+    sc = lambda f: torch.tensor([getattr(d, f) for d in plans], dtype=torch.int32, device=DEV)  # noqa: E731
+    total = sc("out_size")
+    lit_blk, ptr = ops._decode_layout(
+        col("lit_src"), col("lit_dst"), col("lit_len"), col("match_dst"),
+        col("match_off"), sc("n_lit"), sc("n_match"), total, K)
+    depth = max(d.n_waves for d in plans)
+    Bw = blk.shape[1]
+    out = {
+        "plan_speculative_wide": timed(dict(
+            bytes=M * B + 4 * M + 7 * 4 * M * B, ops=M * B * (40 + 16 * 4),
+            run=lambda: k_plan.plan_speculative(sb, sn),
+            plain=lambda: k_plan.plan_speculative_plain(sb, sn),
+            plain_iters=2, iters=10), "plan_speculative_wide"),
+        "decode_wave_wide": timed(dict(
+            bytes=M * Bw + 2 * 4 * M * K + 4 * M + M * K, ops=M * K * (2 * depth + 4),
+            run=lambda: k_wave.decode_wave(blk, lit_blk, ptr, total, 16),
+            plain=lambda: k_wave.decode_wave_plain(blk, lit_blk, ptr, total, 16),
+            plain_iters=2, iters=10), "decode_wave_wide"),
+    }
+    out["plan_speculative_wide"]["B"] = B
+    out["decode_wave_wide"].update(K=K, depth_needed=depth)
+    return {k: {f: v[f] for f in v if f != "operations"} for k, v in out.items()}
+
+
 def phase_decode_kernels() -> dict:
     """The read path's kernels against their plain versions on the card,
     exact; times at M = 8 (the engine's micro-batch) and M = 64."""
@@ -879,20 +1011,18 @@ def phase_decode_kernels() -> dict:
         got = k_plan.plan_speculative(ob, on)
         torch.cuda.synchronize()
         note("plan_speculative", *zip(got, k_plan.plan_speculative_plain(ob, on)))
-    # ... at the widest row the kernel takes; the wrapper refuses one wider
+    # ... at the widest row the shared-memory kernel takes, and one byte
+    # wider (the wide kernel, per-offset tables in device memory)
     lim = k_plan.max_b()
     check(90_000 < lim < k_plan.MAX_B, f"plan_speculative: max_b() = {lim}")
     r = np.random.default_rng(SEED + 23)
     wide = [chain_row(r, lim - 1), r.integers(0, 256, lim - 1, np.uint8).tobytes()]
-    wb, wn = stack_rows(wide, lim, True, SEED + 24)
-    got = k_plan.plan_speculative(wb, wn)
-    torch.cuda.synchronize()
-    note("plan_speculative", *zip(got, k_plan.plan_speculative_plain(wb, wn)))
-    try:
-        k_plan.plan_speculative(stack_rows(wide, lim + 1)[0], wn)
-        check(False, f"plan_speculative took B = {lim + 1} > max_b()")
-    except ValueError:
-        pass
+    for width in (lim, lim + 1):
+        wb, wn = stack_rows(wide, width, True, SEED + 24)
+        got = k_plan.plan_speculative(wb, wn)
+        torch.cuda.synchronize()
+        note("plan_speculative", *zip(got, k_plan.plan_speculative_plain(wb, wn)))
+    spec_wide = plan_wide_cases(note, rows)
     # the fused plan + decode + CRC of the engine, card against CPU
     mo = torch.full((len(rows),), MAX_BLOCK, dtype=torch.int32, device=DEV)
     kw = dict(out_cap=CAPS.out_cap, max_lit=CAPS.max_lit,
@@ -902,24 +1032,13 @@ def phase_decode_kernels() -> dict:
     for a, b in zip(on_card, on_cpu):
         check(torch.equal(a.cpu(), b), "plan_decode on the card != on the CPU")
 
-    # crc32: ragged rows and one long row, also against binascii
-    data = rng.integers(0, 256, (7, MAX_BLOCK), np.uint8)
-    ns = np.array([0, 1, 7, 8, 9, 65535, 65536], np.int32)
-    d_dev, n_dev = torch.from_numpy(data).to(DEV), torch.from_numpy(ns).to(DEV)
-    got = k_crc.crc32(d_dev, n_dev)
-    torch.cuda.synchronize()
-    note("crc32", (got, k_crc.crc32_plain(d_dev, n_dev)))
-    check(got.tolist() == [binascii.crc32(data[j, : ns[j]].tobytes()) for j in range(7)],
-          "crc32 != binascii.crc32")
-    long_row = rng.integers(0, 256, LONG_CRC_ROW, np.uint8)
-    lr_dev = torch.from_numpy(long_row).to(DEV)[None]
-    for n in (long_row.size, long_row.size - 3):
-        n_t = torch.tensor([n], dtype=torch.int32, device=DEV)
-        got = k_crc.crc32(lr_dev, n_t)
-        torch.cuda.synchronize()
-        note("crc32", (got, k_crc.crc32_plain(lr_dev, n_t)))
-        check(int(got[0]) == binascii.crc32(long_row[:n].tobytes()),
-              f"crc32 of a {n}-byte row != binascii.crc32")
+    # decode_wave: tables wider than the cluster kernel's (the wide kernel)
+    wave_wide_cases(note)
+
+    # crc32: ragged rows, every row count the read path makes and more, rows
+    # off 16-byte alignment, rows of several clusters, one long row; also
+    # against binascii
+    long_row = crc_cases(note, rng)
 
     # -- times at M = 8 and M = 64, on blocks of the main path's data --------
     main_like, _ = card_payloads(64, adversarial=False)
@@ -961,6 +1080,7 @@ def phase_decode_kernels() -> dict:
             "decode_wave", lambda: k_wave.decode_wave(blk, lit_blk, ptr, total, 0))
         timing[M]["decode_wave"]["device_ms_random16"] = kernel_device_ms(
             "decode_wave", lambda: k_wave.decode_wave(blk, lit_blk, g, total, 16))
+    lr_dev = torch.from_numpy(long_row).to(DEV)[None]
     lr = torch.tensor([long_row.size], dtype=torch.int32, device=DEV)
     crc_long = timed(dict(bytes=long_row.size + 12, ops=2 * long_row.size,
                           run=lambda: k_crc.crc32(lr_dev, lr),
@@ -972,6 +1092,7 @@ def phase_decode_kernels() -> dict:
         times_M64={k: {f: v[f] for f in v if f not in ("bytes", "operations")}
                    for k, v in timing[64].items()},
         crc32_long_row=dict(bytes=long_row.size, **{f: crc_long[f] for f in TIME_KEYS}),
+        wide_paths=wide_times(spec_wide, main_like),
         shapes=dict(B=CAPS.blk_cap, B_spec=CAPS.blk_cap + ops.SPEC_PAD,
                     K=CAPS.out_cap, rows_spec=len(rows), rows_spec_hard=len(hard)))
     return res
@@ -1046,7 +1167,56 @@ def phase_read_small() -> None:
         report.append(dict(plan_on_device=pod, stats=stats["card"]))
     say("read_small", bytes=len(data), frame_bytes=len(frame),
         blocks=len(blocks), raw_blocks=sum(raws), equal_to_cpu=True,
-        runs=report)
+        runs=report, wide_caps=read_wide_caps(frame, data))
+
+
+def read_wide_caps(frame: bytes, data: bytes) -> list:
+    """Caps wider than the kernels' defaults (ROADMAP C2): the 8 MiB frame
+    with `blk_cap=98304` under on-device planning (plan_speculative's wide
+    kernel) and `out_cap=131072` under both planners (decode_wave's), and a
+    frame whose one block is a corrupt payload wider than `max_b() -
+    SPEC_PAD` but within `blk_cap`.  Bytes == input, `DecodeStats` and error
+    messages == the CPU engine's, and the launch counts show the kernels
+    ran."""
+    rng = np.random.default_rng(SEED + 29)
+    check(WIDE_PAYLOAD > k_plan.max_b() - ops.SPEC_PAD, "the corrupt payload is not wide")
+    bad = encode_frame([rng.integers(0, 256, WIDE_PAYLOAD, np.uint8).tobytes()],
+                       [MAX_BLOCK], [False], checksums=[0])
+    runs = []
+    for caps, pod in ((WIDE_CAPS[0], True), (WIDE_CAPS[1], False), (WIDE_CAPS[1], True)):
+        stats = {}
+        for key, dev in (("card", DEV), ("cpu", torch.device("cpu"))):
+            eng = LZ4DecodeEngine(device=dev, plan_on_device=pod, caps=caps)
+            st = stats[key] = {}
+            reset_launches(READ_KERNEL_MODULES)
+            check(eng.decode(frame) == data, f"wide caps decode ({dev}, {caps}, {pod})")
+            launches = launch_counts(READ_KERNEL_MODULES)
+            st["decode"] = eng.stats.as_dict()
+            if key == "card":
+                d = eng.stats.dispatches
+                want = dict(decode_wave=d, plan_speculative=d if pod else 0, crc32=0)
+                check(d > 0 and launches == want,
+                      f"wide caps ({caps}, {pod}): launches {launches}, want {want}")
+                card_launches = launches
+            t = eng.decode_to_device(frame, verify=True)
+            check(t.cpu().numpy().tobytes() == data and eng.stats.host_bytes == 0,
+                  f"wide caps decode_to_device ({dev}, {caps}, {pod})")
+            st["decode_to_device"] = eng.stats.as_dict()
+            errors = []
+            for call in (eng.decode, eng.decode_to_device):
+                try:
+                    call(bad)
+                    errors.append(None)
+                except FrameFormatError as e:
+                    errors.append(str(e))
+            check(all(errors), f"the wide corrupt payload decoded ({dev}, {caps}, {pod})")
+            st["errors"] = errors
+            st["fallback_blocks_of_corrupt"] = eng.stats.fallback_blocks
+        check(stats["card"] == stats["cpu"],
+              f"wide caps: card and CPU engines differ ({caps}, {pod}): {stats}")
+        runs.append(dict(caps=dict(blk_cap=caps.blk_cap, out_cap=caps.out_cap),
+                         plan_on_device=pod, launches=card_launches, stats=stats["card"]))
+    return runs
 
 
 def phase_read_full(frame: bytes, data: bytes) -> dict:

@@ -47,6 +47,14 @@
 // outside the row.  Entries of the last slice past K start as 0 so every
 // pointer stays inside [0, K) and they never count as a change.
 //
+// Wider tables (K > MAX_K = 65,536: an `out_cap` wider than the engine's
+// default) take a second kernel in the same launch: one CTA per row, the
+// pointer table as int32 in two copies in a scratch buffer in device memory
+// (the wrapper's), ping-ponged, one CTA barrier per round (`__syncthreads_or`
+// of "anything changed", so it stops at the same fixed point), and the
+// output read from lit_blk and the row at the resolved source.  It is
+// correct, not fast: no engine path with the default caps reaches it.
+//
 // Bound: bytes.  The function must read the block (B), lit_blk and ptr
 // (4K each) and write K bytes per row; the rounds run in shared memory.
 // What bounds it now: the rounds, each a dependent local-then-remote
@@ -197,6 +205,42 @@ decode_wave_kernel(const uint8_t* __restrict__ blocks,
   cluster.sync();  // no CTA leaves while another may still read its memory
 }
 
+// Tables wider than MAX_K: one CTA per row, the two int32 copies of the
+// table in `scratch` (2 * M * K int32).  Entries written in this launch are
+// read with plain loads (not __ldg): a CTA barrier makes its own global
+// stores visible to its threads.
+__global__ void __launch_bounds__(THREADS_ALONE, 1)
+decode_wave_wide_kernel(const uint8_t* __restrict__ blocks,
+                        const int* __restrict__ lit_blk,
+                        const int* __restrict__ ptr, const int* __restrict__ total,
+                        uint8_t* __restrict__ out, int* __restrict__ scratch,
+                        int B, int K, int rounds) {
+  const int m = blockIdx.x;
+  const int tid = threadIdx.x;
+  const size_t row = (size_t)m * K;
+  int* cur = scratch + row;
+  int* nxt = scratch + (size_t)gridDim.x * K + row;
+  for (int k = tid; k < K; k += THREADS_ALONE)
+    cur[k] = min(max(__ldg(ptr + row + k), 0), K - 1);
+  __syncthreads();
+  for (int r = 0; r < rounds; ++r) {
+    int changed = 0;
+    for (int k = tid; k < K; k += THREADS_ALONE) {
+      const int a = cur[k];
+      const int v = cur[a];
+      nxt[k] = v;
+      changed |= v != a;
+    }
+    const int any = __syncthreads_or(changed);
+    int* t = cur; cur = nxt; nxt = t;
+    if (!any) break;  // a fixed point: the remaining rounds change nothing
+  }
+  const int tot = total[m];
+  const uint8_t* brow = blocks + (size_t)m * B;
+  for (int k = tid; k < K; k += THREADS_ALONE)
+    out[row + k] = k < tot ? literal_byte(brow, __ldg(lit_blk + row + cur[k]), B) : (uint8_t)0;
+}
+
 // Threads per CTA: a CTA that needs more than half of an SM's shared
 // memory has the SM to itself, so it takes all its threads.
 int threads_for(int smem) { return 2 * smem > SMEM_MAX ? THREADS_ALONE : THREADS; }
@@ -247,11 +291,20 @@ int cluster_for(int M) {
 }  // namespace
 
 // blocks (M, B) uint8, lit_blk (M, K) int32, ptr (M, K) int32, total (M,)
-// int32 -> out (M, K) uint8.  1 <= K <= 65536.
+// int32 -> out (M, K) uint8.  K >= 1; scratch: 2 * M * K int32 where
+// K > MAX_K (null otherwise).
 extern "C" int decode_wave_launch(const void* blocks, const void* lit_blk,
                                   const void* ptr, const void* total, void* out,
-                                  int M, int B, int K, int rounds, void* stream) {
-  if (K < 1 || K > MAX_K || B < 0) return (int)cudaErrorInvalidValue;
+                                  void* scratch, int M, int B, int K, int rounds,
+                                  void* stream) {
+  if (K < 1 || B < 0 || M < 1) return (int)cudaErrorInvalidValue;
+  if (K > MAX_K) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    decode_wave_wide_kernel<<<M, THREADS_ALONE, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)blocks, (const int*)lit_blk, (const int*)ptr,
+        (const int*)total, (uint8_t*)out, (int*)scratch, B, K, rounds);
+    return (int)cudaGetLastError();
+  }
   const int C = cluster_for(M);
   const int lg = slice_log2(K, C);
   const int smem = smem_bytes(lg);

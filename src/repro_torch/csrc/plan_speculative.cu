@@ -54,8 +54,20 @@
 // kernel marks every offset that offset 0 reaches.  Every hop advances at
 // least 3 bytes or ends at the fixed point n, so a node at offset x is
 // x / 3 hops from 0 at most, and for B < 3 * 2^16 = 196,608 the two sets are
-// the same.  The launch refuses a larger B for that reason, whatever shared
-// memory would allow.
+// the same.
+//
+// Wider rows (B > plan_speculative_max_b(): caps wider than the engine's
+// default, or a corrupt payload that fills them) take a second kernel in
+// the same launch, one CTA per row, with every per-offset table in a
+// scratch buffer in device memory that the wrapper allocates: the 0xFF
+// bitmask and its next-word index (int32), the fields as above, then the
+// reference's own 16 doubling rounds of the chain select over two jump maps
+// and two mark maps, ping-ponged, one CTA barrier per round.  A round only
+// ever sets marks (a scatter of ones from the marks of the round before),
+// and the map it writes holds the marks of two rounds before, a subset, so
+// no write needs clearing and no two writes disagree.  It equals the plain
+// version at any B, also past 196,607.  It is correct, not fast: no engine
+// path with the default caps reaches it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -105,8 +117,9 @@ __device__ __forceinline__ uint32_t ff_nibble(uint32_t x) {
 // First offset >= j that is not a 0xFF byte below n, for 0 <= j < B.
 // When j < n the word of n has a clear bit at n, so the word index never
 // runs past it; when j >= n bit j itself is clear.
-__device__ __forceinline__ int next_not_ff(const uint32_t* ff,
-                                           const uint16_t* nxt, int j) {
+template <typename NxtT>
+__device__ __forceinline__ int next_not_ff(const uint32_t* ff, const NxtT* nxt,
+                                           int j) {
   int w = j >> 5;
   uint32_t bits = ~ff[w] & (0xffffffffu << (j & 31));
   if (!bits) {
@@ -121,10 +134,10 @@ struct Header {
 };
 
 // The candidate header at offset i (plan_fields_ref's math, byte for byte).
+template <typename NxtT>
 __device__ __forceinline__ Header header_at(const uint8_t* blk,
-                                            const uint32_t* ff,
-                                            const uint16_t* nxt, int i, int n,
-                                            int B) {
+                                            const uint32_t* ff, const NxtT* nxt,
+                                            int i, int n, int B) {
   const int nm1 = max(n - 1, 0);
   Header h;
   const int byte = blk[i];
@@ -149,6 +162,44 @@ __device__ __forceinline__ Header header_at(const uint8_t* blk,
   h.next = h.ls_end + 2 + (has_mx ? r2 + 1 : 0);
   h.flags = (int)(has_lx && term1 >= n) | ((int)(has_mx && term2 >= n) << 1);
   return h;
+}
+
+// nxt[w] = the first word after w of the 0xFF bitmask that is not all
+// 0xFF (W if none): each thread takes a run of words, a suffix-min scan over
+// the threads joins them.  All THREADS threads call it; s_warp holds
+// THREADS / 32 ints.  Ends with ff read and nxt written, not with a barrier.
+template <typename NxtT>
+__device__ void next_word_index(const uint32_t* ff, NxtT* nxt, int W, int* s_warp) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (W + THREADS - 1) / THREADS;
+  const int lo = min(tid * per, W), hi = min(lo + per, W);
+  int v = W;
+  for (int w = hi - 1; w >= lo; --w)
+    if (ff[w] != 0xffffffffu) v = w;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_down_sync(0xffffffffu, v, d);
+    if (lane + d < 32) v = min(v, o);
+  }
+  if (lane == 0) s_warp[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    int x = lane < THREADS / 32 ? s_warp[lane] : W;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_down_sync(0xffffffffu, x, d);
+      if (lane + d < 32) x = min(x, o);
+    }
+    if (lane < THREADS / 32) s_warp[lane] = x;
+  }
+  __syncthreads();
+  int run = __shfl_down_sync(0xffffffffu, v, 1);
+  if (lane == 31) run = W;
+  if (warp + 1 < THREADS / 32) run = min(run, s_warp[warp + 1]);
+  for (int w = hi - 1; w >= lo; --w) {
+    nxt[w] = (NxtT)run;
+    if (ff[w] != 0xffffffffu) run = w;
+  }
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -211,39 +262,7 @@ plan_speculative_kernel(const uint8_t* __restrict__ blocks,
       s_ff[q >> 1] = below >= 32 ? bits : below <= 0 ? 0u : bits & ((1u << below) - 1u);
   }
   __syncthreads();
-  {
-    // nxt[w] = the first word after w that is not all 0xFF: each thread
-    // takes a run of words, a suffix-min scan over the threads joins them.
-    const int per = (W + THREADS - 1) / THREADS;
-    const int lo = min(tid * per, W), hi = min(lo + per, W);
-    int v = W;
-    for (int w = hi - 1; w >= lo; --w)
-      if (s_ff[w] != 0xffffffffu) v = w;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int o = __shfl_down_sync(0xffffffffu, v, d);
-      if (lane + d < 32) v = min(v, o);
-    }
-    if (lane == 0) s_warp[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-      int x = lane < THREADS / 32 ? s_warp[lane] : W;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int o = __shfl_down_sync(0xffffffffu, x, d);
-        if (lane + d < 32) x = min(x, o);
-      }
-      if (lane < THREADS / 32) s_warp[lane] = x;
-    }
-    __syncthreads();
-    int run = __shfl_down_sync(0xffffffffu, v, 1);
-    if (lane == 31) run = W;
-    if (warp + 1 < THREADS / 32) run = min(run, s_warp[warp + 1]);
-    for (int w = hi - 1; w >= lo; --w) {
-      s_nxt[w] = (uint16_t)run;
-      if (s_ff[w] != 0xffffffffu) run = w;
-    }
-  }
+  next_word_index(s_ff, s_nxt, W, s_warp);
   __syncthreads();
 
   // -- 2. the fields of this chunk's offsets; the chain map --------------------
@@ -355,10 +374,108 @@ plan_speculative_kernel(const uint8_t* __restrict__ blocks,
   cluster.sync();  // no CTA leaves while another may still read its exits
 }
 
+
+// -- rows wider than shared memory --------------------------------------------
+
+constexpr int CHAIN_ROUNDS = 16;  // the plain version's doubling rounds
+
+// One row's scratch for the wide kernel: the 0xFF bitmask (W uint32), its
+// next-word index (W int32), two jump maps (B int32 each) and two mark maps
+// (B bytes each), each part 16-byte aligned.
+struct WideLayout {
+  size_t nxt_off, jump_off, mark_off, bytes;
+};
+
+__host__ __device__ inline WideLayout wide_layout(int B) {
+  const size_t W = ((size_t)B + 31) / 32;
+  WideLayout y;
+  y.nxt_off = (4 * W + 15) & ~(size_t)15;
+  y.jump_off = y.nxt_off + ((4 * W + 15) & ~(size_t)15);
+  y.mark_off = y.jump_off + ((8 * (size_t)B + 15) & ~(size_t)15);
+  y.bytes = y.mark_off + ((2 * (size_t)B + 15) & ~(size_t)15);
+  return y;
+}
+
+// The same fields, one CTA per row, tables in `scratch` (rows of
+// wide_layout(B).bytes); the chain select as the plain version runs it.
+// Tables written in this launch are read with plain loads (not __ldg):
+// a CTA barrier makes its own global stores visible to its threads.
+__global__ void __launch_bounds__(THREADS, 1)
+plan_speculative_wide_kernel(const uint8_t* __restrict__ blocks,
+                             const int* __restrict__ ns, int* __restrict__ is_start,
+                             int* __restrict__ lit_start_o, int* __restrict__ lit_len_o,
+                             int* __restrict__ ls_end_o, int* __restrict__ off_o,
+                             int* __restrict__ mlen_o, int* __restrict__ flags_o,
+                             uint8_t* __restrict__ scratch, int B) {
+  __shared__ int s_warp[THREADS / 32];
+  const int m = blockIdx.x;
+  const int tid = threadIdx.x;
+  const size_t row = (size_t)m * B;
+  const int n = min(max(ns[m], 0), B - 1);  // the caller's precondition
+  const WideLayout y = wide_layout(B);
+  const int W = (B + 31) / 32;
+  uint8_t* sc = scratch + (size_t)m * y.bytes;
+  uint32_t* ff = reinterpret_cast<uint32_t*>(sc);
+  int* nxt = reinterpret_cast<int*>(sc + y.nxt_off);
+  int* jump[2] = {reinterpret_cast<int*>(sc + y.jump_off),
+                  reinterpret_cast<int*>(sc + y.jump_off) + B};
+  uint8_t* mark[2] = {sc + y.mark_off, sc + y.mark_off + B};
+  const uint8_t* blk = blocks + row;
+
+  // -- 1. the 0xFF bitmask of the bytes below n; the next-word index ----------
+  for (int w = tid; w < W; w += THREADS) {
+    uint32_t bits = 0;
+    for (int b = 0; b < 32 && 32 * w + b < n; ++b)
+      if (blk[32 * w + b] == 0xff) bits |= 1u << b;
+    ff[w] = bits;
+  }
+  __syncthreads();
+  next_word_index(ff, nxt, W, s_warp);
+  __syncthreads();
+
+  // -- 2. the fields; the jump map and the marks of round 0 -------------------
+  for (int i = tid; i < B; i += THREADS) {
+    const Header h = header_at(blk, ff, nxt, i, n, B);
+    lit_start_o[row + i] = h.lit_start;
+    lit_len_o[row + i] = h.lit_len;
+    ls_end_o[row + i] = h.ls_end;
+    off_o[row + i] = h.off;
+    mlen_o[row + i] = h.mlen;
+    flags_o[row + i] = h.flags;
+    jump[0][i] = i < n ? min(h.next, n) : i;
+    mark[0][i] = i == 0;
+    mark[1][i] = 0;
+  }
+  __syncthreads();
+
+  // -- 3. chain select: CHAIN_ROUNDS rounds of mark |= scatter(jump, mark),
+  // jump = jump[jump], reading one copy of each map and writing the other ---
+  int cur = 0;
+  for (int r = 0; r < CHAIN_ROUNDS; ++r) {
+    const int* ja = jump[cur];
+    int* jb = jump[cur ^ 1];
+    const uint8_t* ma = mark[cur];
+    uint8_t* mb = mark[cur ^ 1];
+    for (int i = tid; i < B; i += THREADS) {
+      const int j = ja[i];
+      if (ma[i]) {
+        mb[i] = 1;
+        mb[j] = 1;
+      }
+      jb[i] = ja[j];
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+  for (int i = tid; i < B; i += THREADS)
+    is_start[row + i] = i < n ? (int)mark[cur][i] : 0;
+}
+
 }  // namespace
 
-// The largest B the launch takes: MAX_B, or less where the layout outgrows
-// shared memory (its size grows with B).
+// The largest B the shared-memory kernel takes: MAX_B, or less where its
+// layout outgrows shared memory (its size grows with B).  Wider rows take
+// the wide kernel.
 extern "C" int plan_speculative_max_b() {
   int lo = 1, hi = MAX_B;
   while (lo < hi) {
@@ -369,14 +486,30 @@ extern "C" int plan_speculative_max_b() {
   return lo;
 }
 
+// Bytes of device scratch a launch of M rows of B bytes needs: 0 where the
+// shared-memory kernel takes B.
+extern "C" long long plan_speculative_scratch_bytes(int M, int B) {
+  if (B <= plan_speculative_max_b()) return 0;
+  return (long long)M * (long long)wide_layout(B).bytes;
+}
+
 // blocks (M, B) uint8, n (M,) int32 (0 <= n < B) -> seven (M, B) int32 rows
-// (is_start, lit_start, lit_len, ls_end, off, mlen, flags).
+// (is_start, lit_start, lit_len, ls_end, off, mlen, flags).  scratch:
+// plan_speculative_scratch_bytes(M, B) bytes, 16-byte aligned (null if 0).
 extern "C" int plan_speculative_launch(const void* blocks, const void* n,
                                        void* is_start, void* lit_start,
                                        void* lit_len, void* ls_end, void* off,
-                                       void* mlen, void* flags, int M, int B,
-                                       void* stream) {
-  if (B < 1 || B > plan_speculative_max_b()) return (int)cudaErrorInvalidValue;
+                                       void* mlen, void* flags, void* scratch,
+                                       int M, int B, void* stream) {
+  if (B < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  if (B > plan_speculative_max_b()) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    plan_speculative_wide_kernel<<<M, THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)blocks, (const int*)n, (int*)is_start, (int*)lit_start,
+        (int*)lit_len, (int*)ls_end, (int*)off, (int*)mlen, (int*)flags,
+        (uint8_t*)scratch, B);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = layout_of(B).bytes;
   cudaError_t e = cudaFuncSetAttribute(
       plan_speculative_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -24,7 +24,7 @@ __all__ = ["decode_wave", "decode_wave_plain", "launches", "reset_launches"]
 
 launches = 0  # kernel launches since import / the last reset_launches()
 
-MAX_K = 65536      # the uint16 pointer table holds positions < 2^16
+MAX_K = 65536  # the cluster kernel's uint16 table; wider K takes the wide kernel
 
 
 def reset_launches() -> None:
@@ -36,7 +36,7 @@ def _lib():
     lib = _build.load("decode_wave")
     fn = lib.decode_wave_launch
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -80,8 +80,6 @@ def decode_wave(blocks: torch.Tensor, lit_blk: torch.Tensor,
 
     M, B = blocks.shape
     K = ptr.shape[1]
-    if K > MAX_K:
-        raise ValueError(f"the CUDA kernel takes K <= {MAX_K}; got K={K}")
     if not all(t.is_contiguous() for t in (blocks, lit_blk, ptr, total)):
         raise ValueError("blocks, lit_blk, ptr and total must be contiguous")
     out = torch.empty((M, K), dtype=torch.uint8, device=dev)
@@ -90,9 +88,13 @@ def decode_wave(blocks: torch.Tensor, lit_blk: torch.Tensor,
     fn = _lib()
     global launches
     with torch.cuda.device(dev):
+        # K > MAX_K: the wide kernel's two int32 copies of the table
+        scratch = torch.empty((2, M, K), dtype=torch.int32, device=dev) \
+            if K > MAX_K else None
         err = fn(blocks.data_ptr(), lit_blk.data_ptr(), ptr.data_ptr(),
-                 total.data_ptr(), out.data_ptr(), M, B, K, rounds,
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 total.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), M, B, K,
+                 rounds, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "decode_wave")
     launches += 1
     return out

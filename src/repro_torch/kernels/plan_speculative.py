@@ -23,14 +23,15 @@ from . import _build
 from .ref import plan_fields_ref as plan_speculative_plain
 
 __all__ = ["plan_speculative", "plan_speculative_plain", "launches",
-           "reset_launches", "max_b", "FIELDS"]
+           "reset_launches", "max_b", "scratch_bytes", "FIELDS"]
 
 launches = 0  # kernel launches since import / the last reset_launches()
 
-# The largest B for which the kernel's chain select (every offset reachable
-# from 0) equals the plain version's 16 doubling rounds: each hop advances at
-# least 3 bytes, so B < 3 * 2^16.  The kernel's shared memory caps B lower,
-# near 94,000: `max_b()`.
+# The largest B for which the shared-memory kernel's chain select (every
+# offset reachable from 0) equals the plain version's 16 doubling rounds:
+# each hop advances at least 3 bytes, so B < 3 * 2^16.  Its shared memory
+# caps B lower, near 94,000: `max_b()`.  Wider rows take the wide kernel,
+# which runs the 16 rounds themselves, in device memory.
 MAX_B = 196607
 
 FIELDS = ("is_start", "lit_start", "lit_len", "ls_end", "off", "mlen", "flags")
@@ -45,7 +46,7 @@ def _lib():
     lib = _build.load("plan_speculative")
     fn = lib.plan_speculative_launch
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -53,19 +54,28 @@ def _lib():
 
 @functools.cache
 def max_b() -> int:
-    """The largest B the CUDA kernel takes: MAX_B, or less where its shared
-    memory runs out (about 94,000).  Builds the kernel on first use."""
+    """The largest B the shared-memory kernel takes: MAX_B, or less where
+    its shared memory runs out (about 94,000); wider rows take the wide
+    kernel.  Builds the kernel on first use."""
     fn = _build.load("plan_speculative").plan_speculative_max_b
     fn.argtypes, fn.restype = [], ctypes.c_int
     return int(fn())
+
+
+def scratch_bytes(M: int, B: int) -> int:
+    """Device scratch a launch over (M, B) needs: 0 up to `max_b()`, else
+    the wide kernel's per-offset tables."""
+    fn = _build.load("plan_speculative").plan_speculative_scratch_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    return int(fn(M, B))
 
 
 def plan_speculative(blocks: torch.Tensor, n: torch.Tensor):
     """Candidate header at every offset + chain select, for M blocks.
 
     blocks : (M, B) uint8 payloads; B must be strictly greater than every
-             n (the run table is read at index n); the CUDA kernel takes B
-             up to about 94,000
+             n (the run table is read at index n); on the card, rows wider
+             than `max_b()` take the wide kernel (scratch in device memory)
     n      : (M,) int32 payload lengths, 0 <= n < B
 
     Returns the seven (M, B) int32 tensors of `FIELDS`, equal to
@@ -86,10 +96,8 @@ def plan_speculative(blocks: torch.Tensor, n: torch.Tensor):
         raise RuntimeError(f"unsupported device {dev}")
 
     M, B = blocks.shape
-    if B < 1 or B > max_b():
-        raise ValueError(f"the CUDA kernel takes 1 <= B <= {max_b()} (its "
-                         f"shared memory; the chain select alone allows "
-                         f"{MAX_B}), got {B}")
+    if B < 1:
+        raise ValueError(f"the CUDA kernel takes B >= 1, got {B}")
     if not (blocks.is_contiguous() and n.is_contiguous()):
         raise ValueError("blocks and n must be contiguous")
     outs = [torch.empty((M, B), dtype=torch.int32, device=dev) for _ in FIELDS]
@@ -98,8 +106,11 @@ def plan_speculative(blocks: torch.Tensor, n: torch.Tensor):
     fn = _lib()
     global launches
     with torch.cuda.device(dev):
+        nbytes = scratch_bytes(M, B)
+        scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev) if nbytes else None
         err = fn(blocks.data_ptr(), n.data_ptr(),
-                 *(o.data_ptr() for o in outs), M, B,
+                 *(o.data_ptr() for o in outs),
+                 None if scratch is None else scratch.data_ptr(), M, B,
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "plan_speculative")
     launches += 1

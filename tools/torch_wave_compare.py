@@ -62,9 +62,9 @@ def inputs(kind: str, m: int, seed: int, dev: str = "cuda"):
     return torch.from_numpy(blocks).to(dev), t(lit), t(ptr), t(total)
 
 
-def device_ms(fn, iters: int) -> float | str:
-    """Mean device time of one `decode_wave_kernel` launch over `iters`
-    calls of `fn`, from the profiler's device rows."""
+def device_ms(fn, iters: int, kernel: str = "decode_wave") -> float | str:
+    """Mean device time of one `<kernel>_kernel` launch over `iters` calls
+    of `fn`, from the profiler's device rows."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -73,7 +73,7 @@ def device_ms(fn, iters: int) -> float | str:
         torch.cuda.synchronize()
     us, count = 0.0, 0
     for ev in prof.key_averages():
-        if "decode_wave_kernel" in ev.key:
+        if f"{kernel}_kernel" in ev.key:
             us += getattr(ev, "self_device_time_total", None) or \
                 getattr(ev, "self_cuda_time_total", 0)
             count += ev.count
@@ -113,6 +113,27 @@ def worker(root: Path, seed: int, iters: int) -> dict:
     return res
 
 
+def run_checkouts(script: Path, base: Path, args: list[str]) -> tuple[str, list[dict]]:
+    """The card's name and power limit, and the JSON line of `script
+    --worker DIR args` for the base, this checkout, this checkout and the
+    base again, each in a process of its own.  Raises RuntimeError if a
+    worker fails."""
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.pop("REPRO_TORCH_BUILD_DIR", None)
+    order = [("base", base), ("this", HERE), ("this", HERE), ("base", base)]
+    results = []
+    for label, root in order:
+        p = subprocess.run([sys.executable, str(script), "--worker", str(root), *args],
+                           capture_output=True, text=True, env=env, timeout=900)
+        if p.returncode != 0:
+            raise RuntimeError(f"{label} worker failed:\n{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+        results.append(dict(label=label, **json.loads(p.stdout.strip().splitlines()[-1])))
+    return card, results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", type=Path, help="the other checkout")
@@ -129,22 +150,9 @@ def main() -> int:
     if a.base is None or not (a.base / "src" / "repro_torch").is_dir():
         print("--base must name a checkout with src/repro_torch", file=sys.stderr)
         return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip().splitlines()[0]
+    card, results = run_checkouts(Path(__file__), a.base,
+                                  ["--seed", str(a.seed), "--iters", str(a.iters)])
     print(card)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env.pop("REPRO_TORCH_BUILD_DIR", None)
-    order = [("base", a.base), ("this", HERE), ("this", HERE), ("base", a.base)]
-    results = []
-    for label, root in order:
-        p = subprocess.run([sys.executable, __file__, "--worker", str(root),
-                            "--seed", str(a.seed), "--iters", str(a.iters)],
-                           capture_output=True, text=True, env=env, timeout=900)
-        if p.returncode != 0:
-            print(p.stdout[-4000:], p.stderr[-4000:], file=sys.stderr)
-            return 1
-        results.append(dict(label=label, **json.loads(p.stdout.strip().splitlines()[-1])))
     print("M   kind    " + "  ".join(f"{r['label']:>9}" for r in results) + "  (device ms)")
     for i, run in enumerate(results[0]["runs"]):
         cells = [r["runs"][i]["device_ms"] for r in results]
