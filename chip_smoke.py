@@ -11,7 +11,16 @@ fused datapath (the default) and through the staged one
 (``candidate_impl="sort"|"sortkey"|"scatter"``), and the read path,
 `repro_torch.LZ4DecodeEngine(device="cuda")` (`decode`, `decode_blocks`,
 `decode_to_device`, `FrameReader.read_range_device`), on 8 MiB and on
-256 MiB of seeded data, and checks the frames and the bytes.
+256 MiB of seeded data, and checks the frames and the bytes.  Then the
+resilience layer and the engines' consumers on the card:
+`resilience_small` (salvage and v6 parity of damaged 8 MiB frames under
+both planners, every report equal to the CPU engine's), `checkpoint_full`
+(save / restore of a ~0.8 GiB training state, `restore_with_fallback` past
+a damaged step, a salvage restore and the crash seams on a small twin),
+`consumers_small` (KV-cache offload and restore to the card, the token
+pipeline, gradient frames) and `salvage_full` (three damaged blocks of a
+256 MiB v6 frame rebuilt).  Checkpoints and shards are written under
+`build/smoke_scratch/` and removed.
 Imports `repro_torch` only — never the JAX reference.  One JSON line per
 phase; any failed check raises, so the process exits non-zero at once.
 Without a CUDA device it exits non-zero and prints no result.
@@ -25,9 +34,11 @@ whether they write the same bytes.
 from __future__ import annotations
 
 import binascii
+import dataclasses
 import hashlib
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -74,6 +85,19 @@ from repro_torch.kernels import fused_compress as k_fused  # noqa: E402
 from repro_torch.kernels import match_extend as k_ext  # noqa: E402
 from repro_torch.kernels import plan_speculative as k_plan  # noqa: E402
 from repro_torch.kernels import window_select as k_select  # noqa: E402
+from repro_torch._tree import flatten, tree_map  # noqa: E402
+from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
+from repro_torch.core.engine import default_engine  # noqa: E402
+from repro_torch.data.pipeline import ShardedTokenPipeline  # noqa: E402
+from repro_torch.optim import grad_compress  # noqa: E402
+from repro_torch.resilience.inject import (  # noqa: E402
+    FaultInjector,
+    InjectedCrash,
+    corrupt_frame_block,
+    flip_bits,
+    install,
+)
+from repro_torch.serving import engine as serving  # noqa: E402
 
 SEED = 20260731
 DEV = torch.device("cuda")
@@ -87,6 +111,14 @@ KERNEL_MODULES = (k_fused, k_emit, k_select)           # the write path's
 READ_KERNEL_MODULES = (k_wave, k_plan, k_crc)          # the read path's
 STAGED_KERNEL_MODULES = (k_fib, k_ext)                 # the staged path's
 ALL_KERNEL_MODULES = KERNEL_MODULES + STAGED_KERNEL_MODULES
+EVERY_KERNEL_MODULE = ALL_KERNEL_MODULES + READ_KERNEL_MODULES
+WRITE_KERNELS = ("fused_compress", "emit_scatter", "window_select")
+READ_KERNELS = ("decode_wave", "plan_speculative", "crc32")
+# Checkpoints, shards and the like go here (inside the checkout, git-ignored).
+SCRATCH = ROOT / "build" / "smoke_scratch"
+SALVAGE_FULL_BYTES = 256 << 20
+RESILIENCE_BYTES = 8 << 20         # resilience_small's data
+STATE_LAYERS, STATE_WIDTH = 24, 2048   # checkpoint_full's float32 weights
 STAGED_IMPLS = ("sort", "sortkey", "scatter")
 CAPS = DevicePlanCaps()
 ROUND_BUCKETS = (0, 1, 2, 4, 8, 16)
@@ -1545,6 +1577,477 @@ def phase_staged_breakdown(data: bytes) -> None:
         micro_batch=32, wall_seconds=wall, spans=table, device=device)
 
 
+# -- the resilience layer and the engines' consumers ------------------------
+
+def scratch_dir(name: str) -> Path:
+    d = SCRATCH / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def counted(fn, *engines):
+    """Run ``fn()`` with every kernel's launch count set to 0 just before
+    and read just after.  Returns (result, seconds on the host clock ending
+    in a synchronize, launches, dispatches each engine issued in between)."""
+    d0 = [e.totals.dispatches for e in engines]
+    reset_launches(EVERY_KERNEL_MODULE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return (out, dt, launch_counts(EVERY_KERNEL_MODULE),
+            [e.totals.dispatches - d for e, d in zip(engines, d0)])
+
+
+def pick(launches: dict, names) -> dict:
+    return {k: launches[k] for k in names}
+
+
+def block_span(info: dict, i: int) -> tuple[int, int]:
+    start = sum(b["usize"] for b in info["blocks"][:i])
+    return start, start + info["blocks"][i]["usize"]
+
+
+def tree_leaves(tree) -> list:
+    return flatten(tree)[0]
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape and a.device.type == b.device.type
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.to(a.device).reshape(-1).view(torch.uint8)))
+
+
+def trees_same(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(same_bits(x, y) for x, y in zip(la, lb))
+
+
+def as_meta(tree):
+    return tree_map(lambda x: torch.empty_like(x, device="meta"), tree)
+
+
+def training_state(cache: bytes, layers: int, width: int, seed: int) -> dict:
+    """A training state on the card: `layers` float32 (width, width) seeded
+    normal weights, their bfloat16 copies, an int32 step and a uint8 data
+    cache (the compressible leaf)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    params = {f"layer_{i:02d}": torch.randn((width, width), generator=g, device=DEV)
+              for i in range(layers)}
+    return {"params": params,
+            "params_bf16": {k: v.to(torch.bfloat16) for k, v in params.items()},
+            "step": torch.tensor(seed, dtype=torch.int32, device=DEV),
+            "data_cache": torch.frombuffer(bytearray(cache), dtype=torch.uint8).to(DEV)}
+
+
+def leaf_entry(ckpt_path: Path, leaf: str) -> dict:
+    man = json.loads((ckpt_path / "manifest.json").read_text())
+    return next(e for e in man["leaves"] if e["path"] == leaf)
+
+
+def damage_block(ckpt_path: Path, block: dict) -> bytes:
+    """Overwrite the first 16 bytes of one stored LZ4 block in data.bin with
+    0xFF (its first token and length bytes: a literal run past the block's
+    end, so the block cannot decode — seeded bit flips can leave a block
+    that decodes to the right size, which only the leaf's CRC catches).
+    Returns the block's original bytes."""
+    with open(ckpt_path / "data.bin", "r+b") as f:
+        f.seek(block["offset"])
+        orig = f.read(block["size"])
+        f.seek(block["offset"])
+        f.write(b"\xff" * 16)
+    return orig
+
+
+def cpu_report(frame: bytes, plan_on_device: bool) -> dict:
+    """The CPU engine's `SalvageReport` of ``frame`` as a dict (run in the
+    worker processes of `phase_resilience_small`)."""
+    torch.set_num_threads(1)
+    eng = LZ4DecodeEngine(device="cpu", plan_on_device=plan_on_device)
+    return dataclasses.asdict(eng.salvage(frame))
+
+
+def phase_resilience_small() -> None:
+    """Salvage and v6 parity reconstruction on the card, 8 MiB compressed
+    there as v3 and as v6 (`parity_group=4`): for seeds 0, 1, 2 one block
+    corrupted, salvaged under both planners (the v6 block rebuilt, the v3
+    block lost with exactly its span as the hole); then a truncated frame,
+    two damaged blocks in one group, a damaged parity payload, and
+    `FrameReader` in salvage mode.  Every `SalvageReport` == the CPU
+    engine's field by field on the same bytes (computed meanwhile in worker
+    processes); every per-block dispatch launched `decode_wave` (and
+    `plan_speculative` with on-device planning) once."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t_phase = time.perf_counter()
+    data = seeded_data(RESILIENCE_BYTES, SEED + 6)
+    v3 = LZ4Engine(device=DEV).compress(data)
+    v6 = LZ4Engine(device=DEV, parity_group=4).compress(data)
+    info = frame_info(v3)
+    n = len(info["blocks"])
+    card = {pod: LZ4DecodeEngine(device=DEV, plan_on_device=pod) for pod in (False, True)}
+    cases = []   # (name, frame, plan_on_device, check of the report)
+
+    def whole(victim):
+        return lambda r: (r.reconstructed == [victim] and r.lost == [] and r.data == data
+                          and r.content_crc_ok is True)
+
+    def hole(victim):
+        lo, hi = block_span(info, victim)
+        return lambda r: (r.lost == [victim] and r.holes == [(lo, hi)]
+                          and r.data[:lo] == data[:lo] and r.data[hi:] == data[hi:]
+                          and r.data[lo:hi] == bytes(hi - lo))
+
+    rng = np.random.default_rng(SEED + 31)
+    for seed in (0, 1, 2):
+        victim = int(rng.integers(0, n))
+        for pod in (False, True):
+            cases.append((f"v6, seed {seed}, block {victim}",
+                          corrupt_frame_block(v6, victim, seed, n=3), pod, whole(victim)))
+            cases.append((f"v3, seed {seed}, block {victim}",
+                          corrupt_frame_block(v3, victim, seed, n=3), pod, hole(victim)))
+    lo5 = block_span(info, 5)[0]
+    cut = info["blocks"][5]["offset"] + 10
+    for pod in (False, True):
+        cases.append(("v3 truncated inside block 5", v3[:cut], pod,
+                      lambda r: (r.ok == list(range(5)) and r.holes == [(lo5, len(data))]
+                                 and r.data[:lo5] == data[:lo5])))
+    two = corrupt_frame_block(corrupt_frame_block(v6, 8, 0, n=3), 9, 1, n=3)
+    cases.append(("v6, blocks 8 and 9 of group 2 damaged", two, False,
+                  lambda r: (r.lost == [8, 9] and r.reconstructed == []
+                             and "damaged" in r.errors[8])))
+    p = frame_info(v6)["parity"][3]
+    cases.append(("v6, block 12 and the parity payload of group 3 damaged",
+                  flip_bits(corrupt_frame_block(v6, 12, 2, n=3), 2, 3, p["offset"],
+                            p["offset"] + p["plen"]), True,
+                  lambda r: r.lost == [12] and "failed its CRC" in r.errors[12]))
+    bad = corrupt_frame_block(v6, 20, 4, n=3)
+    runs = []
+    totals = dict.fromkeys(READ_KERNELS, 0)
+    with ProcessPoolExecutor(max_workers=6,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        want = [pool.submit(cpu_report, frame, pod) for _, frame, pod, _ in cases]
+        want_reader = pool.submit(cpu_report, bad, True)
+        for (name, frame, pod, ok), fut in zip(cases, want):
+            eng = card[pod]
+            rep, dt, launches, (d,) = counted(lambda: eng.salvage(frame), eng)
+            check(ok(rep), f"{name} (plan_on_device={pod}): {rep.ok=} {rep.lost=} "
+                  f"{rep.reconstructed=} {rep.holes=}")
+            got = pick(launches, READ_KERNELS)
+            check(d > 0 and got == dict(decode_wave=d, plan_speculative=d if pod else 0,
+                                        crc32=0),
+                  f"{name} (plan_on_device={pod}): launches {got} for {d} dispatches")
+            check(dataclasses.asdict(rep) == fut.result(),
+                  f"{name} (plan_on_device={pod}): the card's SalvageReport differs "
+                  "from the CPU engine's")
+            for k in totals:
+                totals[k] += got[k]
+            runs.append(dict(case=name, plan_on_device=pod, seconds=dt, dispatches=d,
+                             launches=got, ok=len(rep.ok), reconstructed=rep.reconstructed,
+                             lost=rep.lost, holes=rep.holes,
+                             content_crc_ok=rep.content_crc_ok))
+        # FrameReader, and the refusals this slice removed (on_error="salvage",
+        # salvage(), FrameReader(on_error="salvage"), FrameReader.salvage()).
+        rep = FrameReader(bad, engine=card[True]).salvage()
+        check(rep.reconstructed == [20] and rep.data == data
+              and dataclasses.asdict(rep) == want_reader.result(), "FrameReader.salvage")
+    tolerant = FrameReader(v3[:cut], engine=card[True], on_error="salvage")
+    check(tolerant.block_count == n and tolerant.read_range(1000, 200_000) == data[1000:201_000]
+          and tolerant.read_range_device(70_000, 9_000).cpu().numpy().tobytes()
+          == data[70_000:79_000], "FrameReader(on_error='salvage') reads")
+    try:
+        tolerant.read_block(5)
+        check(False, "a read of the cut block decoded")
+    except FrameFormatError:
+        pass
+    eng = LZ4DecodeEngine(device=DEV, on_error="salvage")
+    check(eng.decode(bad) == data and eng.last_salvage.reconstructed == [20]
+          and eng.decode(v3) == data, "LZ4DecodeEngine(on_error='salvage').decode")
+    say("resilience_small", bytes=len(data), blocks=n, frame_bytes=dict(v3=len(v3), v6=len(v6)),
+        reports_equal_to_cpu=len(runs) + 1, launches_total=totals, runs=runs,
+        seconds=time.perf_counter() - t_phase)
+
+
+def phase_checkpoint_full(data: bytes) -> None:
+    """`checkpoint.save` / `restore` of a ~0.8 GiB training state on the card
+    (24 float32 2048 x 2048 leaves, their bfloat16 copies, a step, the 256
+    MiB data as a uint8 cache), saved by the default engine and restored by
+    `LZ4DecodeEngine(plan_on_device=True)` (the host planner would make the
+    restore host-bound): every leaf equal, the write kernels once per
+    compress dispatch, `plan_speculative` and `decode_wave` once per decode
+    dispatch; a damaged block makes the strict restore raise and
+    `restore_with_fallback` step back once, an undamaged directory none.
+    On a 22 MiB twin: a salvage restore zero-fills exactly the damaged
+    block, each crash seam leaves the last complete step, injected I/O
+    faults are retried.  A 2 MiB tree writes the same bytes on the card and
+    on the CPU."""
+    from repro_torch import obs
+
+    t_phase = time.perf_counter()
+    root = scratch_dir("checkpoint_full")
+    state = training_state(data, layers=STATE_LAYERS, width=STATE_WIDTH, seed=SEED + 40)
+    like = as_meta(state)
+    nbytes = sum(x.numel() * x.element_size() for x in tree_leaves(state))
+    enc, dec = default_engine(), LZ4DecodeEngine(device=DEV, plan_on_device=True)
+    saves = []
+
+    def save(step: int, tree) -> None:
+        _, dt, launches, (d,) = counted(lambda: ckpt.save(str(root), step, tree), enc)
+        got = pick(launches, WRITE_KERNELS)
+        check(d > 0 and all(v == d for v in got.values()),
+              f"save {step}: launches {got} for {d} dispatches")
+        saves.append(dict(step=step, seconds=dt, GB_per_s=nbytes / dt / 1e9,
+                          dispatches=d, launches=got))
+
+    save(1, state)
+    sha = hashlib.sha256((root / "ckpt_1" / "data.bin").read_bytes()).hexdigest()
+    data_bin = (root / "ckpt_1" / "data.bin").stat().st_size
+    (tree, step), dt, launches, (d,) = counted(
+        lambda: ckpt.restore(str(root), 1, like, decode_engine=dec), dec)
+    got = pick(launches, READ_KERNELS)
+    check(step == 1 and trees_same(tree, state), "restore 1: leaves differ")
+    check(d > 0 and got == dict(decode_wave=d, plan_speculative=d, crc32=0),
+          f"restore 1: launches {got} for {d} dispatches")
+    restored = dict(step=1, seconds=dt, GB_per_s=nbytes / dt / 1e9, dispatches=d,
+                    launches=got)
+    del tree
+    state2 = dict(state, step=state["step"] + 1)
+    save(2, state2)
+    # One compressed block of the data cache damaged in step 2.
+    entry = leaf_entry(root / "ckpt_2", "/data_cache")
+    coded = [b for b in entry["blocks"] if b["lz4"]]
+    block = coded[len(coded) // 3]
+    orig = damage_block(root / "ckpt_2", block)
+    try:
+        ckpt.restore(str(root), 2, like, decode_engine=dec)
+        check(False, "the strict restore of a damaged step succeeded")
+    except ckpt.CheckpointError as e:
+        strict_error = str(e)
+    obs.configure(enabled=True)
+    fallback = []
+    try:
+        for damaged in (True, False):
+            obs.reset()
+            (tree, step), dt, _, _ = counted(
+                lambda: ckpt.restore_with_fallback(str(root), like, decode_engine=dec))
+            steps = obs.snapshot()["metrics"]["counters"].get("checkpoint.fallback_steps", 0)
+            want_step = 1 if damaged else 2
+            check(step == want_step and steps == (1 if damaged else 0)
+                  and trees_same(tree, state if damaged else state2),
+                  f"restore_with_fallback (damaged={damaged}): step {step}, "
+                  f"fallback_steps {steps}")
+            fallback.append(dict(damaged=damaged, step=step, fallback_steps=steps,
+                                 seconds=dt))
+            del tree
+            with open(root / "ckpt_2" / "data.bin", "r+b") as f:   # repair it
+                f.seek(block["offset"])
+                f.write(orig)
+    finally:
+        obs.reset()
+        obs.configure(enabled=False)
+    del state, state2, like
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+    # The twin: 4 x 512 x 512 weights, their bfloat16 copies, 16 MiB cache.
+    twin = training_state(data[: 16 << 20], layers=4, width=512, seed=SEED + 41)
+    twin2 = training_state(data[16 << 20: 32 << 20], layers=4, width=512, seed=SEED + 42)
+    twin_like = as_meta(twin)
+    troot = scratch_dir("checkpoint_twin")
+    ckpt.save(str(troot), 1, twin)
+    obs.configure(enabled=True)
+    try:
+        obs.reset()
+        inj = FaultInjector(seed=0, fail={"checkpoint.open": 1, "checkpoint.read": 2})
+        with install(inj):
+            tree, _ = ckpt.restore(str(troot), 1, twin_like, decode_engine=dec)
+        retries = obs.snapshot()["metrics"]["counters"].get("resilience.retries", 0)
+    finally:
+        obs.reset()
+        obs.configure(enabled=False)
+    check(trees_same(tree, twin) and retries == 3 and sorted(inj.io_faults)
+          == ["checkpoint.open", "checkpoint.read", "checkpoint.read"],
+          f"injected I/O faults: retries {retries}, faults {inj.io_faults}")
+    entry = leaf_entry(troot / "ckpt_1", "/data_cache")
+    k = [i for i, b in enumerate(entry["blocks"]) if b["lz4"]][-20]
+    damage_block(troot / "ckpt_1", entry["blocks"][k])
+    report = {}
+    (tree, _), salvage_s, launches, (d,) = counted(
+        lambda: ckpt.restore(str(troot), 1, twin_like, decode_engine=dec,
+                             on_error="salvage", report=report), dec)
+    lo, hi = k * MAX_BLOCK, (k + 1) * MAX_BLOCK
+    dc, want = tree["data_cache"], twin["data_cache"]
+    check(report == {"zero_filled": {"/data_cache": [k]}, "crc_mismatch": ["/data_cache"]}
+          and not dc[lo:hi].any() and torch.equal(dc[:lo], want[:lo])
+          and torch.equal(dc[hi:], want[hi:])
+          and trees_same(dict(tree, data_cache=want), twin),
+          f"salvage restore: report {report}")
+    twin_salvage = dict(block=k, zero_filled=[lo, hi], report=report, seconds=salvage_s,
+                        dispatches=d, launches=pick(launches, READ_KERNELS))
+    seams = {}
+    for seam in ("checkpoint.data", "checkpoint.manifest", "checkpoint.rename",
+                 "checkpoint.cleanup"):
+        d = scratch_dir("crash")
+        ckpt.save(str(d), 1, twin)
+        inj = FaultInjector(seed=3, crash_at=seam)
+        try:
+            with install(inj):
+                ckpt.save(str(d), 2, twin2)
+            crashed = False
+        except InjectedCrash:
+            crashed = True
+        want_step = 2 if seam == "checkpoint.cleanup" else 1
+        latest = ckpt.latest_step(str(d))
+        tree, step = ckpt.restore_with_fallback(str(d), twin_like, decode_engine=dec)
+        check(crashed and inj.crashes == [seam] and latest == want_step == step
+              and trees_same(tree, twin2 if want_step == 2 else twin),
+              f"crash at {seam}: latest_step {latest}, restored {step}")
+        seams[seam] = dict(latest_step=latest, restored_step=step)
+    shutil.rmtree(troot)
+    # A tree of under 2 MiB: the card's and the CPU's checkpoints are the
+    # same bytes.
+    small = {"w": twin["params"]["layer_00"][:256], "h": twin["params_bf16"]["layer_01"][:256],
+             "c": twin["data_cache"][: 1 << 20], "step": twin["step"]}
+    a, b = scratch_dir("small_card"), scratch_dir("small_cpu")
+    ckpt.save(str(a), 1, small)
+    ckpt.save(str(b), 1, small, engine=LZ4Engine(device="cpu"))
+    for name in ("data.bin", "manifest.json"):
+        check((a / "ckpt_1" / name).read_bytes() == (b / "ckpt_1" / name).read_bytes(),
+              f"{name}: the card's checkpoint differs from the CPU's")
+    small_bytes = (a / "ckpt_1" / "data.bin").stat().st_size
+    shutil.rmtree(SCRATCH)
+    say("checkpoint_full", state_bytes=nbytes, leaves=2 * STATE_LAYERS + 2,
+        data_bin_bytes=data_bin, data_bin_sha256=sha, saves=saves, restore=restored,
+        strict_error=strict_error, fallback=fallback, io_retries=retries,
+        twin_salvage=twin_salvage, crash_seams=seams,
+        small_tree_data_bin_bytes=small_bytes, small_tree_equal_to_cpu=True,
+        seconds=time.perf_counter() - t_phase)
+
+
+def phase_consumers_small(data: bytes) -> None:
+    """KV-cache offload and restore to the card (each leaf a view of the
+    decoded tensor, no content to the host), a damaged leaf salvaged, the
+    reader's random access; the token pipeline on the card == with a CPU
+    decode engine; gradient frames round-tripped; the error-feedback
+    quantizer on the card == on the CPU."""
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=DEV).manual_seed(SEED + 50)
+
+    def kv():  # a paused session: 512 of 1024 positions filled
+        x = torch.zeros((4, 8, 1024, 128), dtype=torch.bfloat16, device=DEV)
+        x[:, :, :512] = torch.randn((4, 8, 512, 128), generator=g, device=DEV)
+        return x
+    cache = {"k": kv(), "v": kv(), "pos": torch.full((4,), 512, dtype=torch.int32, device=DEV),
+             "prefix": torch.frombuffer(bytearray(data[: 4 << 20]), dtype=torch.uint8).to(DEV)}
+    enc = default_engine()
+    dec = LZ4DecodeEngine(device=DEV, plan_on_device=True)
+    (blob, stats), off_s, launches, (d,) = counted(lambda: serving.offload_cache(cache), enc)
+    off_launches = pick(launches, WRITE_KERNELS)
+    check(d > 0 and all(v == d for v in off_launches.values()), f"offload launches {launches}")
+    h0 = dec.totals.host_bytes
+    restored, res_s, launches, (rd,) = counted(
+        lambda: serving.restore_cache(blob, dec, to_device=True), dec)
+    res_launches = pick(launches, READ_KERNELS)
+    check(trees_same(restored, cache) and dec.totals.host_bytes == h0
+          and all(x._is_view() for x in tree_leaves(restored)),
+          "restore_cache(to_device=True): leaves differ, are copies, or content "
+          "crossed to the host")
+    check(rd > 0 and res_launches == dict(decode_wave=rd, plan_speculative=rd, crc32=rd),
+          f"restore_cache launches {res_launches} for {rd} dispatches")
+    # A damaged leaf ("k", leaf 0 in sorted order): salvaged, its block zeroed.
+    frame = blob[1][0]["frame"]
+    info = frame_info(frame)
+    victim = 3
+    lo, hi = block_span(info, victim)
+    bad = [blob[0], [dict(b) for b in blob[1]]]
+    bad[1][0]["frame"] = corrupt_frame_block(frame, victim, SEED, n=3)
+    report = {}
+    got = serving.restore_cache(bad, dec, to_device=True, on_error="salvage", report=report)
+    want_rep = LZ4DecodeEngine(device="cpu", plan_on_device=True).salvage(bad[1][0]["frame"])
+    k_bytes = got["k"].reshape(-1).view(torch.uint8)
+    ref_bytes = cache["k"].reshape(-1).view(torch.uint8)
+    check(set(report) == {0} and report[0].lost == [victim]
+          and dataclasses.asdict(report[0]) == dataclasses.asdict(want_rep)
+          and not k_bytes[lo:hi].any() and torch.equal(k_bytes[:lo], ref_bytes[:lo])
+          and torch.equal(k_bytes[hi:], ref_bytes[hi:])
+          and trees_same(dict(got, k=cache["k"]), cache), "restore_cache salvage")
+    rdr = serving.OffloadedCacheReader(blob, dec, to_device=True)
+    part = rdr.read_leaf(0, start=1000, count=70_000)
+    host = serving.OffloadedCacheReader(blob, LZ4DecodeEngine(device="cpu")).read_leaf(
+        0, start=1000, count=70_000)
+    flat = cache["k"].reshape(-1)[1000:71_000]
+    check(same_bits(part, flat) and same_bits(host, flat.cpu()), "OffloadedCacheReader")
+    # The token pipeline: shards written on the card, read on the card and
+    # through a CPU engine.
+    pipe_dir = scratch_dir("pipeline")
+    batches = {}
+    for cache_shards in (True, False):
+        kw = dict(n_shards=4, shard_tokens=1 << 18, seed=7, cache_shards=cache_shards)
+        on_card = ShardedTokenPipeline(str(pipe_dir), 32000, **kw)
+        on_cpu = ShardedTokenPipeline(str(pipe_dir), 32000,
+                                      decode_engine=LZ4DecodeEngine(device="cpu"), **kw)
+        for step in range(3):
+            a, b = on_card.batch(step, 8, 1024), on_cpu.batch(step, 8, 1024)
+            check(a.dtype == np.int32 and np.array_equal(a, b),
+                  f"pipeline batch {step} (cache_shards={cache_shards}) differs")
+        batches[str(cache_shards)] = hashlib.sha256(a.tobytes()).hexdigest()[:16]
+    ratio = on_card.compression_ratio()
+    shutil.rmtree(SCRATCH)
+    # Gradient frames and the quantizer.
+    grads = {"w": torch.randn((1024, 1024), generator=g, device=DEV) * 1e-3,
+             "e": torch.randn((512, 512), generator=g, device=DEV).to(torch.bfloat16),
+             "b": torch.randn((4096,), generator=g, device=DEV)}
+    gframe = grad_compress.export_gradient_frame(grads)
+    back = grad_compress.import_gradient_frame(gframe, as_meta(grads))
+    check(trees_same(back, grads), "gradient frame round trip")
+    ef = grad_compress.ef_init(grads)
+    q, ef = grad_compress.quantize_with_error_feedback(grads, ef)
+    cpu_grads = tree_map(lambda x: x.cpu(), grads)
+    q_cpu, ef_cpu = grad_compress.quantize_with_error_feedback(
+        cpu_grads, grad_compress.ef_init(cpu_grads))
+    check(trees_same(tree_map(lambda x: x.cpu(), q), q_cpu)
+          and trees_same(tree_map(lambda x: x.cpu(), ef), ef_cpu),
+          "quantize_with_error_feedback: the card's differs from the CPU's")
+    say("consumers_small", cache_bytes=stats["raw"], offload=dict(
+            seconds=off_s, ratio=stats["ratio"], dispatches=d, launches=off_launches),
+        restore_to_device=dict(seconds=res_s, dispatches=rd, launches=res_launches,
+                               host_bytes=0, leaves_are_views=True),
+        salvage_leaf=dict(block=victim, lost=report[0].lost, zero_filled=[lo, hi]),
+        pipeline=dict(batches_equal_to_cpu=6, ratio=ratio, last_batch_sha256=batches),
+        gradient_frame_bytes=len(gframe), quantizer_equal_to_cpu=True,
+        seconds=time.perf_counter() - t_phase)
+
+
+def phase_salvage_full(data: bytes) -> None:
+    """Salvage at full size: the data as a v6 frame (`parity_group=8`),
+    three blocks in three groups corrupted, salvaged by
+    `LZ4DecodeEngine(device="cuda", plan_on_device=True)` one block per
+    dispatch (about half the time of host planning per block): all three
+    rebuilt, the content trailer verified."""
+    data = data[:SALVAGE_FULL_BYTES]
+    frame = LZ4Engine(device=DEV, parity_group=8).compress(data)
+    n = len(frame_info(frame)["blocks"])
+    rng = np.random.default_rng(SEED + 60)
+    victims = sorted(int(grp) * 8 + int(rng.integers(0, 8))
+                     for grp in rng.choice(n // 8, size=3, replace=False))
+    bad = frame
+    for j, v in enumerate(victims):
+        bad = corrupt_frame_block(bad, v, SEED + j, n=3)
+    eng = LZ4DecodeEngine(device=DEV, plan_on_device=True)
+    rep, dt, launches, (d,) = counted(lambda: eng.salvage(bad), eng)
+    got = pick(launches, READ_KERNELS)
+    check(rep.reconstructed == victims and rep.lost == [] and rep.data == data
+          and rep.content_crc_ok is True, f"salvage_full: {rep.reconstructed}, {rep.lost}")
+    check(d > 0 and got == dict(decode_wave=d, plan_speculative=d, crc32=0),
+          f"salvage_full: launches {got} for {d} dispatches")
+    say("salvage_full", bytes=len(data), blocks=n, parity_group=8, victims=victims,
+        reconstructed=rep.reconstructed, seconds=dt, output_GB_per_s=len(data) / dt / 1e9,
+        dispatches=d, launches=got, ok=len(rep.ok), content_crc_ok=rep.content_crc_ok)
+
+
 def main() -> None:
     # Bring-up aid: `--stop-after build|kernels|small` ends the run early
     # (exit 0, no result lines).  With no arguments the whole run.
@@ -1561,6 +2064,7 @@ def main() -> None:
         return
     phase_path_staged_small(*phase_path_small())
     phase_read_small()
+    phase_resilience_small()
     if stop_after == "small":
         return
     t0 = time.perf_counter()
@@ -1573,6 +2077,9 @@ def main() -> None:
     launches, frame = phase_path_full(data, micro_batch=32)   # THE write path
     phase_path_full(data, micro_batch=256)
     launches.update(phase_read_full(frame, data))             # THE read path
+    phase_checkpoint_full(data)       # the consumers' path: save / restore
+    phase_consumers_small(data)
+    phase_salvage_full(data)
     staged = phase_path_staged_full(data, frame)              # the staged path
     launches.update({k: staged[k] for k in ("fibhash", "match_extend")})
     phase_breakdown(data[: 64 << 20])

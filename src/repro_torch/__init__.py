@@ -10,14 +10,24 @@ Ported so far: the write path, `core.engine.LZ4Engine.compress` -> frame,
 through the fused datapath (the default) or the staged one
 (``candidate_impl="sort"|"sortkey"|"scatter"``); the read path,
 `core.decode_engine.LZ4DecodeEngine` (frame -> bytes on the host or a uint8
-tensor on the card, `FrameReader` for random access); and the NumPy golden
+tensor on the card, `FrameReader` for random access); the NumPy golden
 models and host oracles (`core.reference`, `core.schemes`, `core.encoder`,
-`core.cycle_model`).
+`core.cycle_model`); the resilience layer (`resilience`: salvage of damaged
+frames with v6 parity reconstruction — `LZ4DecodeEngine.salvage`,
+``on_error="salvage"`` — retries, seeded fault injection); and the engines'
+consumers: crash-consistent checkpoints (`checkpoint.checkpoint`), the token
+data pipeline (`data.pipeline`), KV-cache offload (`serving.engine`) and
+gradient frames (`optim.grad_compress`).
 
     from repro_torch import LZ4Engine, LZ4DecodeEngine
     frame = LZ4Engine().compress(data)              # on the card
     frame = LZ4Engine(device="cpu").compress(data)  # kernels' plain versions
     dev = LZ4DecodeEngine(plan_on_device=True).decode_to_device(frame)
+    report = LZ4DecodeEngine().salvage(damaged)     # SalvageReport
+
+    from repro_torch.checkpoint import checkpoint
+    checkpoint.save(ckpt_dir, step, state)          # compressed on the card
+    state, step = checkpoint.restore_with_fallback(ckpt_dir, like)
 
 Entry points run on the card unless the caller asks for the CPU.
 """
@@ -40,13 +50,16 @@ from .core.frame import (  # noqa: F401
     decode_frame_serial,
     encode_frame,
     frame_info,
+    scan_frame,
 )
+from .resilience.errors import FrameError  # noqa: F401
+from .resilience.salvage import SalvageReport, salvage_frame  # noqa: F401
 
 __all__ = [
     "LZ4Engine", "EngineStats", "default_engine", "LZ4DecodeEngine",
     "DecodeStats", "FrameReader", "default_decode_engine", "FrameFormatError",
     "decode_frame", "decode_frame_serial", "encode_frame", "frame_info",
-    "probe",
+    "scan_frame", "FrameError", "SalvageReport", "salvage_frame", "probe",
 ]
 
 

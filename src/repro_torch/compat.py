@@ -71,7 +71,7 @@ def engine_config(**kw) -> dict:
             if v is not None:
                 raise NotImplementedError(
                     f"{k}= selects the sharded fabric, which repro_torch "
-                    "does not have yet")
+                    "does not have yet (ROADMAP queue A, item A8)")
             continue
         out[k] = v
     return out
@@ -81,9 +81,9 @@ def decode_engine_config(**kw) -> dict:
     """Map the reference `LZ4DecodeEngine` keywords onto this package's.
 
     ``use_pallas`` is dropped (there is one kernel route); ``mesh`` /
-    ``shard_axes`` are refused unless None (the sharded fabric, ROADMAP A8)
-    and ``on_error="salvage"`` is refused (the salvage pass, ROADMAP A6).
-    Everything else passes through; the caller adds ``device=``.
+    ``shard_axes`` are refused unless None (the sharded fabric, ROADMAP A8).
+    Everything else, ``on_error`` included, passes through; the caller adds
+    ``device=``.
     """
     out = {}
     for k, v in kw.items():
@@ -95,9 +95,5 @@ def decode_engine_config(**kw) -> dict:
                     f"{k}= selects the sharded fabric, which repro_torch "
                     "does not have yet (ROADMAP queue A, item A8)")
             continue
-        if k == "on_error" and v == "salvage":
-            raise NotImplementedError(
-                'on_error="salvage" needs the salvage pass, which '
-                "repro_torch does not have yet (ROADMAP queue A, item A6)")
         out[k] = v
     return out

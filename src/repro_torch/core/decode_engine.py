@@ -31,11 +31,11 @@ copies — and the blocks fan out.  Four executors:
 
 The host executors run only when the caller names them.  `FrameReader` adds
 random access through the frame's block table (`read_block`, `read_range`,
-`read_range_device`).
+`read_range_device`).  `salvage()` (and ``on_error="salvage"``) recovers
+every undamaged block of a damaged frame (`repro_torch.resilience.salvage`).
 
 Not ported yet (refused with NotImplementedError): ``mesh=`` /
-``shard_axes=`` (ROADMAP A8, the sharded fabric) and ``on_error="salvage"``
-/ `salvage()` (ROADMAP A6, resilience).
+``shard_axes=`` (ROADMAP A8, the sharded fabric).
 """
 from __future__ import annotations
 
@@ -69,6 +69,7 @@ from .frame import (
     check_block,
     check_content_crc,
     frame_info,
+    scan_frame,
 )
 from .lz4_types import MAX_BLOCK, pad_pow2_count
 
@@ -228,10 +229,6 @@ class LZ4DecodeEngine:
             raise ValueError(f"executor must be one of {_EXECUTORS}")
         if on_error not in ("raise", "salvage"):
             raise ValueError('on_error must be "raise" or "salvage"')
-        if on_error == "salvage":
-            raise NotImplementedError(
-                'on_error="salvage" needs the salvage pass, which repro_torch '
-                "does not have yet (ROADMAP queue A, item A6)")
         if mesh is not None or shard_axes is not None:
             raise NotImplementedError(
                 "mesh= / shard_axes= select the sharded fabric, which "
@@ -269,7 +266,14 @@ class LZ4DecodeEngine:
         # two-phase planner in workers.  Both are bit-identical.
         self.two_phase = (self.executor != "serial") if two_phase is None \
             else two_phase
+        # on_error="salvage": `decode` of a damaged frame falls back to the
+        # salvage pass (repro_torch.resilience.salvage) and returns everything
+        # recoverable with lost blocks zero-filled — never silently: the
+        # fallback is counted (``resilience.*`` obs counters) and
+        # `last_salvage` holds the full SalvageReport.  Intact frames decode
+        # byte-identically either way; "raise" keeps all-or-nothing decode.
         self.on_error = on_error
+        self.last_salvage = None
         # None follows the global `repro_torch.obs` gate at call time.
         self.telemetry = telemetry
         self.stats = DecodeStats()      # most recent call (see DecodeStats)
@@ -824,17 +828,34 @@ class LZ4DecodeEngine:
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def salvage(self, frame: bytes):
-        """Not ported yet: the salvage pass is ROADMAP queue A, item A6."""
-        raise NotImplementedError(
-            "salvage() needs the salvage pass, which repro_torch does not "
-            "have yet (ROADMAP queue A, item A6)")
+        """Salvage pass over a (possibly damaged) frame: decode every
+        undamaged block on this engine's executor, reconstruct what v6
+        parity can prove byte-identical, and return the `SalvageReport`
+        (recovered data with holes zero-filled + exact loss accounting).
+        See repro_torch/resilience/salvage.py."""
+        from repro_torch.resilience.salvage import salvage_frame
+
+        report = salvage_frame(frame, engine=self)
+        self.last_salvage = report
+        return report
 
     def decode(self, frame: bytes) -> bytes:
         """Frame -> original bytes; bit-identical to `decode_frame_serial`.
 
         Raises FrameFormatError on any malformation, including per-block
-        and whole-object checksum mismatches.
+        and whole-object checksum mismatches — unless constructed with
+        ``on_error="salvage"``, which turns a failed strict decode into a
+        salvage pass returning everything recoverable (lost blocks
+        zero-filled; the full accounting lands in ``last_salvage``).
         """
+        if self.on_error == "salvage":
+            try:
+                return self._decode_strict(frame)
+            except FrameFormatError:
+                return self.salvage(frame).data
+        return self._decode_strict(frame)
+
+    def _decode_strict(self, frame: bytes) -> bytes:
         info = frame_info(frame)
         blocks = info["blocks"]
         st = DecodeStats(
@@ -915,13 +936,13 @@ class FrameReader:
                  cache_blocks: int = 8, on_error: str = "raise"):
         if on_error not in ("raise", "salvage"):
             raise ValueError('on_error must be "raise" or "salvage"')
-        if on_error == "salvage":
-            raise NotImplementedError(
-                'on_error="salvage" needs the salvage pass, which repro_torch '
-                "does not have yet (ROADMAP queue A, item A6)")
         self._frame = bytes(frame)
         self._engine = engine or default_decode_engine()
-        self._info = frame_info(self._frame)
+        # on_error="salvage": tolerant table parse — a reader over a damaged
+        # frame still exposes every readable entry (reads of blocks whose
+        # payloads are damaged fail per block; `salvage()` recovers).
+        self._info = scan_frame(self._frame) if on_error == "salvage" \
+            else frame_info(self._frame)
         self.on_error = on_error
         self._blocks = self._info["blocks"]
         # starts[i] = decompressed offset of block i; starts[-1] = total size.
@@ -936,6 +957,8 @@ class FrameReader:
 
     @property
     def block_count(self) -> int:
+        # len(blocks), not the header count: a salvage-mode reader over a
+        # truncated table exposes only the entries it could read.
         return len(self._blocks)
 
     @property
@@ -1030,3 +1053,10 @@ class FrameReader:
     def read(self) -> bytes:
         """Full decode."""
         return self._engine.decode(self._frame)
+
+    def salvage(self):
+        """Salvage pass over this reader's frame — decode every undamaged
+        block, reconstruct from v6 parity where provable, and return the
+        `SalvageReport`.  Works regardless of ``on_error`` (a strict reader
+        can still salvage after a read raised)."""
+        return self._engine.salvage(self._frame)

@@ -64,8 +64,8 @@ Unsharded version-5 writers record `shard_count = 1` with every block on
 shard 0.
 
 Version 6 (opt-in via ``LZ4Engine(parity_group=N)``) adds an erasure-coding
-surface on top of the version-5 layout so salvage (`repro.resilience`) can
-*reconstruct* damage instead of merely mapping it:
+surface on top of the version-5 layout so salvage (`repro_torch.resilience`)
+can *reconstruct* damage instead of merely mapping it:
 
     frame  := magic(4) | version=6 | block_count(u32 LE)
               | content_size(u64 LE) | shard_count(u32 LE)
@@ -449,7 +449,7 @@ def frame_info(frame: bytes, max_version: int | None = None) -> dict:
 
 
 def scan_frame(frame: bytes) -> dict:
-    """Tolerant header/table parse for salvage (`repro.resilience.salvage`).
+    """Tolerant header/table parse for salvage (`repro_torch.resilience.salvage`).
 
     Where `frame_info` is all-or-nothing — one lying table field rejects the
     whole frame — `scan_frame` recovers as much structural metadata as the

@@ -34,6 +34,17 @@ NVCC_FLAGS = (
 # cudaFuncSetAttribute); the wrappers check their kernels' needs against it.
 SMEM_PER_CTA = 232448
 
+
+class KernelRefusal(ValueError):
+    """A kernel wrapper refused its inputs (shape, width, alignment, device
+    placement) — a caller's bug or a limit of the kernel, never corrupt data.
+
+    A ValueError, as the wrappers always raised; its own type lets code that
+    treats ValueError as damage (`checkpoint.restore_with_fallback`, which
+    steps back past a step whose manifest does not match its data) let a
+    refusal through to the caller instead."""
+
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: float | None = None   # wall time of the last real build

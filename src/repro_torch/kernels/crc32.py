@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ._build import KernelRefusal
 from .ref import CRC_POLY, _multmodp, crc_byte_table, crc_x2n_table
 from .ref import crc32_ref as crc32_plain
 
@@ -136,14 +137,14 @@ def crc32(data: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     Returns (M,) int64 holding the unsigned CRC, equal to `crc32_plain`.
     """
     if data.dim() != 2 or n.shape != (data.shape[0],):
-        raise ValueError(f"expected data (M, K) and n (M,), got "
-                         f"{tuple(data.shape)} and {tuple(n.shape)}")
+        raise KernelRefusal(f"expected data (M, K) and n (M,), got "
+                            f"{tuple(data.shape)} and {tuple(n.shape)}")
     if data.dtype != torch.uint8 or n.dtype != torch.int32:
         raise TypeError(f"expected uint8 data and int32 n, got {data.dtype} "
                         f"and {n.dtype}")
     dev = data.device
     if n.device != dev:
-        raise ValueError("data and n must live on the same device")
+        raise KernelRefusal("data and n must live on the same device")
     if dev.type == "cpu":
         return crc32_plain(data, n)
     if dev.type != "cuda":
@@ -151,9 +152,9 @@ def crc32(data: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
     M, K = data.shape
     if M > 65535:
-        raise ValueError(f"the CUDA kernel takes at most 65535 rows, got {M}")
+        raise KernelRefusal(f"the CUDA kernel takes at most 65535 rows, got {M}")
     if not (data.is_contiguous() and n.is_contiguous()):
-        raise ValueError("data and n must be contiguous")
+        raise KernelRefusal("data and n must be contiguous")
     out = torch.empty((M,), dtype=torch.int64, device=dev)
     if M == 0:
         return out

@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._build import KernelRefusal
 from .ref import decode_gather_ref as decode_wave_plain
 
 __all__ = ["decode_wave", "decode_wave_plain", "launches", "reset_launches"]
@@ -59,7 +60,7 @@ def decode_wave(blocks: torch.Tensor, lit_blk: torch.Tensor,
     if blocks.dim() != 2 or lit_blk.dim() != 2 or lit_blk.shape != ptr.shape \
             or total.shape != (blocks.shape[0],) \
             or lit_blk.shape[0] != blocks.shape[0]:
-        raise ValueError(
+        raise KernelRefusal(
             f"expected blocks (M, B), lit_blk and ptr (M, K), total (M,); got "
             f"{tuple(blocks.shape)}, {tuple(lit_blk.shape)}, "
             f"{tuple(ptr.shape)}, {tuple(total.shape)}")
@@ -69,10 +70,10 @@ def decode_wave(blocks: torch.Tensor, lit_blk: torch.Tensor,
                         f"got {blocks.dtype}, {lit_blk.dtype}, {ptr.dtype}, "
                         f"{total.dtype}")
     if rounds < 0:
-        raise ValueError(f"rounds must be >= 0, got {rounds}")
+        raise KernelRefusal(f"rounds must be >= 0, got {rounds}")
     dev = blocks.device
     if not (lit_blk.device == ptr.device == total.device == dev):
-        raise ValueError("blocks, lit_blk, ptr and total must live on one device")
+        raise KernelRefusal("blocks, lit_blk, ptr and total must live on one device")
     if dev.type == "cpu":
         return decode_wave_plain(blocks, lit_blk, ptr, total, rounds)
     if dev.type != "cuda":
@@ -81,7 +82,7 @@ def decode_wave(blocks: torch.Tensor, lit_blk: torch.Tensor,
     M, B = blocks.shape
     K = ptr.shape[1]
     if not all(t.is_contiguous() for t in (blocks, lit_blk, ptr, total)):
-        raise ValueError("blocks, lit_blk, ptr and total must be contiguous")
+        raise KernelRefusal("blocks, lit_blk, ptr and total must be contiguous")
     out = torch.empty((M, K), dtype=torch.uint8, device=dev)
     if M == 0 or K == 0:
         return out

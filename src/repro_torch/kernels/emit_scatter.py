@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._build import KernelRefusal
 from .ref import N_FIELDS
 from .ref import emit_bytes_ref as emit_scatter_plain
 
@@ -52,31 +53,31 @@ def emit_scatter(blocks_u8: torch.Tensor, seg: torch.Tensor,
     """
     if blocks_u8.dim() != 2 or seg.dim() != 2 or fields.dim() != 3 \
             or total.dim() != 1:
-        raise ValueError("expected blocks (M, B), seg (M, K), fields "
-                         "(M, 8, S), total (M,)")
+        raise KernelRefusal("expected blocks (M, B), seg (M, K), fields "
+                            "(M, 8, S), total (M,)")
     M, B = blocks_u8.shape
     K = seg.shape[1]
     S = fields.shape[2]
     if seg.shape[0] != M or fields.shape[:2] != (M, N_FIELDS) \
             or total.shape[0] != M:
-        raise ValueError(f"batch/field mismatch: blocks {tuple(blocks_u8.shape)}, "
-                         f"seg {tuple(seg.shape)}, fields {tuple(fields.shape)}, "
-                         f"total {tuple(total.shape)}")
+        raise KernelRefusal(f"batch/field mismatch: blocks {tuple(blocks_u8.shape)}, "
+                            f"seg {tuple(seg.shape)}, fields {tuple(fields.shape)}, "
+                            f"total {tuple(total.shape)}")
     if blocks_u8.dtype != torch.uint8 or any(
             t.dtype != torch.int32 for t in (seg, fields, total)):
         raise TypeError("expected uint8 blocks and int32 seg/fields/total")
     dev = blocks_u8.device
     if any(t.device != dev for t in (seg, fields, total)):
-        raise ValueError("all inputs must live on the same device")
+        raise KernelRefusal("all inputs must live on the same device")
     if dev.type == "cpu":
         return emit_scatter_plain(blocks_u8, seg, fields, total)
     if dev.type != "cuda":
         raise RuntimeError(f"unsupported device {dev}")
 
     if not all(t.is_contiguous() for t in (blocks_u8, seg, fields, total)):
-        raise ValueError("all inputs must be contiguous")
+        raise KernelRefusal("all inputs must be contiguous")
     if seg.data_ptr() % 16:
-        raise ValueError("seg must be 16-byte aligned")
+        raise KernelRefusal("seg must be 16-byte aligned")
     out = torch.empty((M, K), dtype=torch.uint8, device=dev)
     if M == 0 or K == 0:
         return out

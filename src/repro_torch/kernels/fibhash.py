@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._build import KernelRefusal
 from .ref import fibhash_ref
 
 __all__ = ["fibhash", "fibhash_plain", "launches", "reset_launches"]
@@ -58,15 +59,15 @@ def fibhash(blocks_u8: torch.Tensor, positions: int, hash_bits: int = 8):
     equal to `fibhash_plain`.
     """
     if blocks_u8.dim() != 2:
-        raise ValueError(f"expected blocks (M, B), got {tuple(blocks_u8.shape)}")
+        raise KernelRefusal(f"expected blocks (M, B), got {tuple(blocks_u8.shape)}")
     if blocks_u8.dtype != torch.uint8:
         raise TypeError(f"expected uint8 blocks, got {blocks_u8.dtype}")
     M, B = blocks_u8.shape
     P = positions
     if not 0 <= P <= B - 3:
-        raise ValueError(f"need 0 <= positions <= B - 3; got positions={P}, B={B}")
+        raise KernelRefusal(f"need 0 <= positions <= B - 3; got positions={P}, B={B}")
     if not 1 <= hash_bits <= 32:
-        raise ValueError(f"need 1 <= hash_bits <= 32, got {hash_bits}")
+        raise KernelRefusal(f"need 1 <= hash_bits <= 32, got {hash_bits}")
     dev = blocks_u8.device
     if dev.type == "cpu":
         return fibhash_plain(blocks_u8, P, hash_bits)
@@ -74,9 +75,9 @@ def fibhash(blocks_u8: torch.Tensor, positions: int, hash_bits: int = 8):
         raise RuntimeError(f"unsupported device {dev}")
 
     if not blocks_u8.is_contiguous():
-        raise ValueError("blocks must be contiguous")
+        raise KernelRefusal("blocks must be contiguous")
     if M > 65535:
-        raise ValueError(f"the CUDA kernel takes M <= 65535 rows, got {M}")
+        raise KernelRefusal(f"the CUDA kernel takes M <= 65535 rows, got {M}")
     words = torch.empty((M, P), dtype=torch.int32, device=dev)
     hashes = torch.empty((M, P), dtype=torch.int32, device=dev)
     if M == 0 or P == 0:

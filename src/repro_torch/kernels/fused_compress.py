@@ -19,6 +19,7 @@ import torch
 from repro_torch.core.lz4_types import MIN_MATCH
 
 from . import _build
+from ._build import KernelRefusal
 from .ref import fused_ref as fused_compress_plain
 
 __all__ = ["fused_compress", "fused_compress_plain", "launches",
@@ -113,32 +114,32 @@ def fused_compress(blocks_u8: torch.Tensor, ns: torch.Tensor, positions: int,
     in [MIN_MATCH, max_match]) — elementwise equal to `fused_compress_plain`.
     """
     if blocks_u8.dim() != 2 or ns.dim() != 1 or ns.shape[0] != blocks_u8.shape[0]:
-        raise ValueError(f"expected blocks (M, B) and ns (M,), got "
-                         f"{tuple(blocks_u8.shape)} and {tuple(ns.shape)}")
+        raise KernelRefusal(f"expected blocks (M, B) and ns (M,), got "
+                            f"{tuple(blocks_u8.shape)} and {tuple(ns.shape)}")
     if blocks_u8.dtype != torch.uint8 or ns.dtype != torch.int32:
         raise TypeError(f"expected uint8 blocks and int32 ns, got "
                         f"{blocks_u8.dtype} and {ns.dtype}")
     M, B = blocks_u8.shape
     P = positions
     if not (MIN_MATCH <= max_match and B >= P + max(max_match, MIN_MATCH)):
-        raise ValueError(f"need 4 <= max_match and B >= P + max_match; got "
-                         f"B={B}, P={P}, max_match={max_match}")
+        raise KernelRefusal(f"need 4 <= max_match and B >= P + max_match; got "
+                            f"B={B}, P={P}, max_match={max_match}")
     if pws < 1 or P % pws:
-        raise ValueError(f"pws={pws} must divide P={P}")
+        raise KernelRefusal(f"pws={pws} must divide P={P}")
     if ns.device != blocks_u8.device:
-        raise ValueError("blocks and ns must live on the same device")
+        raise KernelRefusal("blocks and ns must live on the same device")
     if blocks_u8.device.type == "cpu":
         return fused_compress_plain(blocks_u8, ns, P, hash_bits, pws, max_match)
     if blocks_u8.device.type != "cuda":
         raise RuntimeError(f"unsupported device {blocks_u8.device}")
 
     if not (1 <= hash_bits <= 16):
-        raise ValueError(f"the CUDA kernel takes 1 <= hash_bits <= 16, got {hash_bits}")
+        raise KernelRefusal(f"the CUDA kernel takes 1 <= hash_bits <= 16, got {hash_bits}")
     if pws & (pws - 1) or pws > 2048 or P % 2048:
-        raise ValueError(f"the CUDA kernel takes a power-of-two pws <= 2048 "
-                         f"and P % 2048 == 0, got pws={pws}, P={P}")
+        raise KernelRefusal(f"the CUDA kernel takes a power-of-two pws <= 2048 "
+                            f"and P % 2048 == 0, got pws={pws}, P={P}")
     if not (blocks_u8.is_contiguous() and ns.is_contiguous()):
-        raise ValueError("blocks and ns must be contiguous")
+        raise KernelRefusal("blocks and ns must be contiguous")
     dev = blocks_u8.device
     cand = torch.empty((M, P), dtype=torch.int32, device=dev)
     lengths = torch.empty((M, P), dtype=torch.int32, device=dev)
@@ -146,8 +147,8 @@ def fused_compress(blocks_u8: torch.Tensor, ns: torch.Tensor, positions: int,
         return cand, lengths
     plan = _plan(B, P, hash_bits, pws)
     if plan.smem_bytes > _SMEM_LIMIT:
-        raise ValueError(f"the CUDA kernel stages P + 32 bytes of a row in "
-                         f"shared memory; P={P} is too large")
+        raise KernelRefusal(f"the CUDA kernel stages P + 32 bytes of a row in "
+                            f"shared memory; P={P} is too large")
     scratch = None if plan.tables_in_shared else torch.empty(
         (M, plan.cluster, plan.nseg + 1, 1 << hash_bits),
         dtype=torch.int32, device=dev)

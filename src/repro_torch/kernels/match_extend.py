@@ -18,6 +18,7 @@ import torch
 from repro_torch.core.lz4_types import MIN_MATCH
 
 from . import _build
+from ._build import KernelRefusal
 from .ref import match_extend_ref as match_extend_plain
 
 __all__ = ["match_extend", "match_extend_plain", "launches", "reset_launches"]
@@ -58,7 +59,7 @@ def match_extend(blocks_u8: torch.Tensor, cand: torch.Tensor,
     if (blocks_u8.dim() != 2 or cand.dim() != 2 or valid.shape != cand.shape
             or ns.dim() != 1 or not (blocks_u8.shape[0] == cand.shape[0]
                                      == ns.shape[0])):
-        raise ValueError(
+        raise KernelRefusal(
             f"expected blocks (M, B), cand and valid (M, P), ns (M,); got "
             f"{tuple(blocks_u8.shape)}, {tuple(cand.shape)}, "
             f"{tuple(valid.shape)}, {tuple(ns.shape)}")
@@ -71,11 +72,11 @@ def match_extend(blocks_u8: torch.Tensor, cand: torch.Tensor,
     M, B = blocks_u8.shape
     P = cand.shape[1]
     if B < 1 or max_match < MIN_MATCH:
-        raise ValueError(f"need B >= 1 and max_match >= {MIN_MATCH}; got "
-                         f"B={B}, max_match={max_match}")
+        raise KernelRefusal(f"need B >= 1 and max_match >= {MIN_MATCH}; got "
+                            f"B={B}, max_match={max_match}")
     dev = blocks_u8.device
     if not (cand.device == valid.device == ns.device == dev):
-        raise ValueError("blocks, cand, valid and ns must live on one device")
+        raise KernelRefusal("blocks, cand, valid and ns must live on one device")
     if dev.type == "cpu":
         return match_extend_plain(blocks_u8, cand, valid.to(torch.bool), ns,
                                   max_match)
@@ -83,9 +84,9 @@ def match_extend(blocks_u8: torch.Tensor, cand: torch.Tensor,
         raise RuntimeError(f"unsupported device {dev}")
 
     if not all(t.is_contiguous() for t in (blocks_u8, cand, valid, ns)):
-        raise ValueError("blocks, cand, valid and ns must be contiguous")
+        raise KernelRefusal("blocks, cand, valid and ns must be contiguous")
     if M > 65535:
-        raise ValueError(f"the CUDA kernel takes M <= 65535 rows, got {M}")
+        raise KernelRefusal(f"the CUDA kernel takes M <= 65535 rows, got {M}")
     out = torch.empty((M, P), dtype=torch.int32, device=dev)
     if M == 0 or P == 0:
         return out

@@ -20,6 +20,7 @@ import functools
 import torch
 
 from . import _build
+from ._build import KernelRefusal
 from .ref import plan_fields_ref as plan_speculative_plain
 
 __all__ = ["plan_speculative", "plan_speculative_plain", "launches",
@@ -82,14 +83,14 @@ def plan_speculative(blocks: torch.Tensor, n: torch.Tensor):
     `plan_speculative_plain`.
     """
     if blocks.dim() != 2 or n.shape != (blocks.shape[0],):
-        raise ValueError(f"expected blocks (M, B) and n (M,), got "
-                         f"{tuple(blocks.shape)} and {tuple(n.shape)}")
+        raise KernelRefusal(f"expected blocks (M, B) and n (M,), got "
+                            f"{tuple(blocks.shape)} and {tuple(n.shape)}")
     if blocks.dtype != torch.uint8 or n.dtype != torch.int32:
         raise TypeError(f"expected uint8 blocks and int32 n, got "
                         f"{blocks.dtype} and {n.dtype}")
     dev = blocks.device
     if n.device != dev:
-        raise ValueError("blocks and n must live on the same device")
+        raise KernelRefusal("blocks and n must live on the same device")
     if dev.type == "cpu":
         return plan_speculative_plain(blocks, n)
     if dev.type != "cuda":
@@ -97,9 +98,9 @@ def plan_speculative(blocks: torch.Tensor, n: torch.Tensor):
 
     M, B = blocks.shape
     if B < 1:
-        raise ValueError(f"the CUDA kernel takes B >= 1, got {B}")
+        raise KernelRefusal(f"the CUDA kernel takes B >= 1, got {B}")
     if not (blocks.is_contiguous() and n.is_contiguous()):
-        raise ValueError("blocks and n must be contiguous")
+        raise KernelRefusal("blocks and n must be contiguous")
     outs = [torch.empty((M, B), dtype=torch.int32, device=dev) for _ in FIELDS]
     if M == 0:
         return tuple(outs)

@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._build import KernelRefusal
 from .ref import window_select_ref as window_select_plain
 
 __all__ = ["window_select", "window_select_plain", "launches",
@@ -52,16 +53,16 @@ def window_select(valid: torch.Tensor, lengths: torch.Tensor, pws: int):
     with W = P // pws, equal to `window_select_plain`.
     """
     if valid.dim() != 2 or valid.shape != lengths.shape:
-        raise ValueError(f"expected valid and lengths of one shape (M, P), got "
-                         f"{tuple(valid.shape)} and {tuple(lengths.shape)}")
+        raise KernelRefusal(f"expected valid and lengths of one shape (M, P), got "
+                            f"{tuple(valid.shape)} and {tuple(lengths.shape)}")
     if valid.dtype not in (torch.bool, torch.uint8) or lengths.dtype != torch.int32:
         raise TypeError(f"expected bool/uint8 valid and int32 lengths, got "
                         f"{valid.dtype} and {lengths.dtype}")
     M, P = valid.shape
     if pws < 1 or P % pws:
-        raise ValueError(f"pws={pws} must divide P={P}")
+        raise KernelRefusal(f"pws={pws} must divide P={P}")
     if valid.device != lengths.device:
-        raise ValueError("valid and lengths must live on the same device")
+        raise KernelRefusal("valid and lengths must live on the same device")
     dev = valid.device
     if dev.type == "cpu":
         return window_select_plain(valid, lengths, pws)
@@ -69,10 +70,10 @@ def window_select(valid: torch.Tensor, lengths: torch.Tensor, pws: int):
         raise RuntimeError(f"unsupported device {dev}")
 
     if pws & (pws - 1) or pws > 2048:
-        raise ValueError(f"the CUDA kernel takes a power-of-two pws <= 2048, "
-                         f"got {pws}")
+        raise KernelRefusal(f"the CUDA kernel takes a power-of-two pws <= 2048, "
+                            f"got {pws}")
     if not (valid.is_contiguous() and lengths.is_contiguous()):
-        raise ValueError("valid and lengths must be contiguous")
+        raise KernelRefusal("valid and lengths must be contiguous")
     W = P // pws
     emit = torch.empty((M, W), dtype=torch.bool, device=dev)
     pos = torch.empty((M, W), dtype=torch.int32, device=dev)

@@ -24,7 +24,7 @@ one type with structured attributes instead of message matching:
 ``block_index`` is the 0-based frame/leaf block the error was attributed
 to (None for whole-frame errors: header, table, content trailer).
 ``cause`` is a short machine-readable slug — the salvage layer
-(`repro.resilience.salvage`) groups per-block failures by it:
+(`repro_torch.resilience.salvage`) groups per-block failures by it:
 
     "truncated"    payload/table/header bytes missing
     "parse"        token stream does not parse as LZ4

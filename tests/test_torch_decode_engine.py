@@ -299,15 +299,16 @@ def test_refusals_and_keyword_mapping():
             LZ4DecodeEngine(device="cpu", **kw)
         with pytest.raises(NotImplementedError, match="A8"):
             compat.decode_engine_config(**kw)
-    with pytest.raises(NotImplementedError, match="A6"):
-        LZ4DecodeEngine(device="cpu", on_error="salvage")
-    with pytest.raises(NotImplementedError, match="A6"):
-        compat.decode_engine_config(on_error="salvage")
-    with pytest.raises(NotImplementedError, match="A6"):
-        LZ4DecodeEngine(device="cpu").salvage(frames()["tiny"][0])
-    with pytest.raises(NotImplementedError, match="A6"):
-        FrameReader(frames()["tiny"][0], engine=LZ4DecodeEngine(device="cpu"),
-                    on_error="salvage")
+    # The salvage hooks (refused until ROADMAP A6 was ported) now run; the
+    # chaos matrix against the reference is tests/test_torch_resilience.py.
+    assert compat.decode_engine_config(on_error="salvage") == dict(on_error="salvage")
+    frame, data = frames()["tiny"]
+    assert LZ4DecodeEngine(device="cpu", on_error="salvage").decode(frame) == data
+    rep = LZ4DecodeEngine(device="cpu").salvage(frame)
+    assert rep.data == data and rep.complete and rep.ok == [0]
+    reader = FrameReader(frame, engine=LZ4DecodeEngine(device="cpu"),
+                         on_error="salvage")
+    assert reader.read_range(0, 3) == data and reader.salvage().data == data
     with pytest.raises(ValueError, match="plan_on_device"):
         LZ4DecodeEngine(device="cpu", executor="serial", plan_on_device=True)
     for bad in (dict(executor="gpu"), dict(micro_batch=0), dict(workers=0),

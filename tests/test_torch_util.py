@@ -4,14 +4,16 @@ Seeded numpy inputs that go through BOTH packages, the adversarial block
 corpus (a copy of the corpora the reference's own kernel tests use, merged),
 the LZ4 block corpus of the read-path tests (`block_corpus`, valid streams at
 the length-field boundaries; `lying_corpus`, one malformed stream per planner
-check), and the one-thread setting that keeps parallel test workers from starting a
-full torch thread pool each.  This file holds no tests.
+check), the port's ``chaos`` fixture, and the one-thread setting that keeps
+parallel test workers from starting a full torch thread pool each.  This file
+holds no tests.
 """
 from __future__ import annotations
 
 import functools
 
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.core.corpus import adversarial_blocks
@@ -121,3 +123,26 @@ def lying_corpus() -> dict[str, tuple[bytes, int]]:
         "out_limit_match": (b"\x1fA\x01\x00\x20" + fin, 10),
         "empty": (b"", MAX_BLOCK),
     }
+
+
+@pytest.fixture
+def chaos():
+    """Factory: ``chaos(seed=..., crash_at=..., fail={...}, slow={...})``
+    arms a `repro_torch.resilience.inject.FaultInjector` for one test and
+    disarms it at teardown (the port's twin of the reference's fixture in
+    `tests/conftest.py`, which arms the reference's injector).  Import it
+    into a test module: ``from test_torch_util import chaos``."""
+    from repro_torch.resilience.inject import FaultInjector, install
+
+    active = []
+
+    def arm(seed: int = 0, **kw) -> FaultInjector:
+        inj = FaultInjector(seed=seed, **kw)
+        cm = install(inj)
+        cm.__enter__()
+        active.append(cm)
+        return inj
+
+    yield arm
+    while active:
+        active.pop().__exit__(None, None, None)
