@@ -19,8 +19,14 @@ both planners, every report equal to the CPU engine's), `checkpoint_full`
 a damaged step, a salvage restore and the crash seams on a small twin),
 `consumers_small` (KV-cache offload and restore to the card, the token
 pipeline, gradient frames) and `salvage_full` (three damaged blocks of a
-256 MiB v6 frame rebuilt).  Checkpoints and shards are written under
-`build/smoke_scratch/` and removed.
+256 MiB v6 frame rebuilt).  Then the sharded fabric: `fabric_small`
+(8 MiB: frame v4 through the host-partition path and through meshes of
+(2, 1), (2, 2) and (1, 8) shards — distinct cards where enough are visible,
+else cuda:0 repeated — sharded decode under both planners, the int8
+pod-sum, `restore(shardings=)` and the pipeline schedule) and `fabric_full`
+(the 256 MiB data over a (2, 2) mesh, compressed and decoded).
+Checkpoints and shards are written under `build/smoke_scratch/` and
+removed.
 Imports `repro_torch` only — never the JAX reference.  One JSON line per
 phase; any failed check raises, so the process exits non-zero at once.
 Without a CUDA device it exits non-zero and prints no result.
@@ -89,6 +95,15 @@ from repro_torch._tree import flatten, tree_map  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
 from repro_torch.core.engine import default_engine  # noqa: E402
 from repro_torch.data.pipeline import ShardedTokenPipeline  # noqa: E402
+from repro_torch.distributed import fabric  # noqa: E402
+from repro_torch.distributed.pipeline import pipeline_apply  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    NamedSharding,
+    P,
+    make_mesh,
+    single_device_mesh,
+    use_mesh,
+)
 from repro_torch.optim import grad_compress  # noqa: E402
 from repro_torch.resilience.inject import (  # noqa: E402
     FaultInjector,
@@ -123,6 +138,7 @@ STAGED_IMPLS = ("sort", "sortkey", "scatter")
 CAPS = DevicePlanCaps()
 ROUND_BUCKETS = (0, 1, 2, 4, 8, 16)
 LONG_CRC_ROW = (64 << 20) + 5   # bytes of the long row the crc32 kernel checks
+FABRIC_SHAPES = ((2, 1), (2, 2), (1, 8))   # ("data", "model") meshes of fabric_small
 TIME_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
 
 
@@ -1450,7 +1466,7 @@ def verify_frame(frame: bytes, data: bytes, sample: int, seed: int) -> dict:
                 version=info["version"])
 
 
-def phase_path_full(data: bytes, micro_batch: int) -> dict:
+def phase_path_full(data: bytes, micro_batch: int) -> tuple[dict, bytes, dict]:
     """The main path at full size.  Counts are zeroed just before and read
     just after; each dispatch must have launched each kernel once."""
     eng = LZ4Engine(device=DEV, micro_batch=micro_batch)
@@ -1474,7 +1490,8 @@ def phase_path_full(data: bytes, micro_batch: int) -> dict:
         host_bytes_per_input_byte=st.host_bytes / len(data),
         stats=st.as_dict(), launches=launches, verified=verified,
         peak_device_MiB=torch.cuda.max_memory_allocated() / 2**20)
-    return launches, frame
+    return launches, frame, dict(seconds=seconds, input_GB_per_s=len(data) / seconds / 1e9,
+                                 dispatches=st.dispatches, launches=dict(launches))
 
 
 def phase_breakdown(data: bytes) -> None:
@@ -2048,6 +2065,271 @@ def phase_salvage_full(data: bytes) -> None:
         dispatches=d, launches=got, ok=len(rep.ok), content_crc_ok=rep.content_crc_ok)
 
 
+# -- the sharded fabric --------------------------------------------------------
+
+def fabric_mesh(shape, axes=("data", "model")):
+    """A mesh of distinct cards where enough are visible, else of cuda:0
+    repeated (each position still a shard of its own)."""
+    n = int(np.prod(shape))
+    distinct = torch.cuda.device_count() >= n
+    devices = [torch.device("cuda", i if distinct else 0) for i in range(n)]
+    return make_mesh(shape, axes, devices=devices), distinct
+
+
+def launches_by_device(modules) -> dict:
+    return {m.__name__.rsplit(".", 1)[1]: {f"cuda:{d}": n for d, n in
+                                           sorted(m.launches_by_device.items())}
+            for m in modules}
+
+
+def shard_pieces(data: bytes, shards: int) -> list[bytes]:
+    chunks = [data[i: i + MAX_BLOCK] for i in range(0, len(data), MAX_BLOCK)]
+    return [b"".join(chunks[sl.start: sl.stop])
+            for sl in fabric.partition_blocks(len(chunks), shards)]
+
+
+def payloads_of(frame: bytes) -> list[bytes]:
+    return [frame[b["offset"]: b["offset"] + b["csize"]]
+            for b in frame_info(frame)["blocks"]]
+
+
+def check_subframes(frame: bytes, data: bytes, shards: int, single) -> int:
+    """Each shard's subframe == the unsharded engine on its slice."""
+    n = 0
+    for s, piece in enumerate(shard_pieces(data, shards)):
+        if piece:
+            check(fabric.shard_subframe(frame, s) == single.compress(piece),
+                  f"shard {s} of {shards}: subframe != the unsharded engine's")
+            n += 1
+    return n
+
+
+def invert_bytes(frame: bytes, head: bool) -> bytes:
+    """The last coded block with three middle payload bytes inverted (a
+    checksum mismatch) or, with ``head``, its first four (a parse error)."""
+    info = frame_info(frame)
+    b = [b for b in info["blocks"] if not b["raw"]][-1]
+    spots = (0, 1, 2, 3) if head else tuple(
+        (b["csize"] // 2 + d) % b["csize"] for d in (0, 7, 19))
+    bad = bytearray(frame)
+    for d in spots:
+        bad[b["offset"] + d] ^= 0xFF
+    return bytes(bad)
+
+
+def error_of(fn) -> str:
+    try:
+        fn()
+    except FrameFormatError as e:
+        return str(e)
+    raise AssertionError("a damaged frame decoded without an error")
+
+
+def phase_fabric_small() -> None:
+    """The sharded fabric on 8 MiB: host-partition frames (shards 1, 2, 4;
+    a 7-block input at 4 and 8 shards, fused and "sortkey"), mesh frames
+    on (2, 1), (2, 2), (1, 8) meshes == the host path's, every subframe ==
+    the unsharded engine on its slice; sharded decode under both planners,
+    `read_range` across every shard boundary, a corrupt payload's error and
+    the host fallback of oversized payloads == the unsharded engine's; the
+    int8 pod-sum, `restore(shardings=)` and `pipeline_apply` on the card."""
+    t_phase = time.perf_counter()
+    data = seeded_data(8 << 20, SEED + 80)
+    single = LZ4Engine(device=DEV)
+    plain = payloads_of(single.compress(data))
+    host, subframes = {}, 0
+    for S in (1, 2, 4, 8):
+        eng = LZ4Engine(device=DEV, shards=S)
+        host[S] = eng.compress(data)
+        info = frame_info(host[S])
+        check(info["version"] == 4 and info["shard_count"] == S
+              and payloads_of(host[S]) == plain and eng.stats.shards == S,
+              f"host path, shards={S}: not the unsharded engine's blocks")
+        subframes += check_subframes(host[S], data, S, single)
+    seven = data[: 7 * MAX_BLOCK - 1000]
+    for S in (4, 8):
+        got = {impl: LZ4Engine(device=DEV, shards=S, candidate_impl=impl).compress(seven)
+               for impl in ("fused", "sortkey")}
+        check(got["fused"] == got["sortkey"], f"7 blocks over {S}: impls differ")
+        subframes += check_subframes(got["fused"], seven, S, single)
+    meshes = []
+    for shape in FABRIC_SHAPES:
+        mesh, distinct = fabric_mesh(shape)
+        S = mesh.size
+        eng = LZ4Engine(mesh=mesh)
+        frame, dt, launches, (d,) = counted(lambda: eng.compress(data), eng)
+        by_dev = launches_by_device(KERNEL_MODULES)
+        check(frame == host[S], f"mesh {shape}: frame != the host path's")
+        check(all(launches[k] == S * d for k in WRITE_KERNELS),
+              f"mesh {shape}: launches {pick(launches, WRITE_KERNELS)} for "
+              f"{S} shards x {d} dispatches")
+        subframes += check_subframes(frame, data, S, single)
+        run = dict(shape=list(shape), distinct_cards=distinct, shards=S,
+                   compress=dict(seconds=dt, dispatches=d,
+                                 launches=pick(launches, WRITE_KERNELS),
+                                 launches_by_device=by_dev))
+        bounds = sorted({sl.start * MAX_BLOCK for sl in
+                         fabric.partition_blocks(-(-len(data) // MAX_BLOCK), S)} - {0})
+        for on_device in (False, True):
+            dec = LZ4DecodeEngine(mesh=mesh, plan_on_device=on_device)
+            out, ddt, dl, (dd,) = counted(lambda: dec.decode(frame), dec)
+            read_by_dev, dstats = launches_by_device(READ_KERNEL_MODULES), dec.stats.as_dict()
+            want = dict(decode_wave=S * dd, plan_speculative=S * dd if on_device else 0,
+                        crc32=0)
+            check(out == data and dec.stats.fallback_blocks == 0,
+                  f"mesh {shape}: sharded decode (plan_on_device={on_device})")
+            check(pick(dl, READ_KERNELS) == want,
+                  f"mesh {shape}: decode launches {pick(dl, READ_KERNELS)} != {want}")
+            reader = FrameReader(frame, engine=dec, cache_blocks=0)
+            for b in bounds:
+                for lo, n in ((b - 50, 100), (b - 1, 2), (b - MAX_BLOCK // 2, MAX_BLOCK)):
+                    n = min(n, len(data) - lo)
+                    check(reader.read_range(lo, n) == data[lo: lo + n],
+                          f"mesh {shape}: read_range({lo}, {n})")
+            run["decode_plan_on_device" if on_device else "decode_host_planned"] = dict(
+                seconds=ddt, dispatches=dd, launches=pick(dl, READ_KERNELS),
+                launches_by_device=read_by_dev, stats=dstats,
+                read_range_bounds=len(bounds))
+        meshes.append(run)
+    # Damage and fallback on the (2, 2) mesh against the unsharded engine.
+    mesh, _ = fabric_mesh((2, 2))
+    frame = host[4]
+    coded = sorted(b["csize"] for b in frame_info(frame)["blocks"] if not b["raw"])
+    caps = DevicePlanCaps(blk_cap=coded[len(coded) // 2])
+    damage = {}
+    for on_device in (False, True):
+        sharded = LZ4DecodeEngine(mesh=mesh, plan_on_device=on_device)
+        flat = LZ4DecodeEngine(device=DEV, plan_on_device=on_device)
+        for head in (False, True):
+            bad = invert_bytes(frame, head)
+            got, want = error_of(lambda: sharded.decode(bad)), error_of(lambda: flat.decode(bad))
+            check(got == want, f"corrupt payload: {got!r} != {want!r}")
+            damage[f"{'head' if head else 'middle'}_plan_on_device={on_device}"] = got
+        sharded = LZ4DecodeEngine(mesh=mesh, plan_on_device=on_device, caps=caps)
+        flat = LZ4DecodeEngine(device=DEV, plan_on_device=on_device, caps=caps)
+        check(sharded.decode(frame) == data == flat.decode(frame)
+              and sharded.stats.fallback_blocks == flat.stats.fallback_blocks > 0,
+              f"oversized payloads: fallback {sharded.stats.fallback_blocks} != "
+              f"{flat.stats.fallback_blocks}")
+        damage[f"fallback_blocks_plan_on_device={on_device}"] = sharded.stats.fallback_blocks
+    consumers = fabric_consumers()
+    say("fabric_small", bytes=len(data), host_shards=[1, 2, 4, 8],
+        uneven=dict(blocks=7, shards=[4, 8], impls=["fused", "sortkey"]),
+        subframes_equal=subframes, meshes=meshes, oversized_blk_cap=caps.blk_cap,
+        damage=damage, consumers=consumers, seconds=time.perf_counter() - t_phase)
+
+
+def fabric_consumers() -> dict:
+    """The fabric's consumers on the card: the int8 pod-sum over a (2, 2)
+    ("pod", "data") mesh == the CPU port's (exact), `restore(shardings=)`
+    of a checkpoint onto the card's single-device mesh, and the GPipe
+    schedule over four pods == the sequential composition (within 1e-5:
+    cuBLAS may pick other kernels for the microbatches' shapes)."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 81)
+    x = torch.randn((64, 1024), generator=g, device=DEV)
+    mesh, _ = fabric_mesh((2, 2), ("pod", "data"))
+    with use_mesh(mesh):
+        y = grad_compress.compressed_psum_pod(x)
+    with use_mesh(make_mesh((2, 2), ("pod", "data"), devices=["cpu"] * 4)):
+        y_cpu = grad_compress.compressed_psum_pod(x.cpu())
+    check(y.device == x.device and torch.equal(y.cpu(), y_cpu),
+          "compressed_psum_pod: the card's differs from the CPU's")
+    tree = {"w": torch.randn((256, 1024), generator=g, device=DEV),
+            "i": torch.arange(50_000, dtype=torch.int32, device=DEV),
+            "z": [torch.zeros(100_000, device=DEV), None]}
+    d = scratch_dir("fabric")
+    ckpt.save(str(d), 1, tree, engine=LZ4Engine(device=DEV))
+    one = single_device_mesh()
+    like = as_meta(tree)
+    got, _ = ckpt.restore(str(d), 1, like,
+                          shardings=tree_map(lambda _: NamedSharding(one, P()), like),
+                          decode_engine=LZ4DecodeEngine(device=DEV))
+    check(trees_same(got, tree) and all(t.device == one.device_at((0, 0))
+                                        for t in tree_leaves(got)),
+          "restore(shardings=) on the card")
+    shutil.rmtree(SCRATCH)
+    S, width = 4, 256
+    params = {"w": torch.randn((S, width, width), generator=g, device=DEV) * 0.06,
+              "b": torch.randn((S, width), generator=g, device=DEV) * 0.1}
+    xs = torch.randn((64, width), generator=g, device=DEV)
+
+    def stage(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    pods, _ = fabric_mesh((S,), ("pod",))
+    with use_mesh(pods):
+        yp = pipeline_apply(stage, params, xs, n_micro=8)
+    seq = xs
+    for s in range(S):
+        seq = stage({"w": params["w"][s], "b": params["b"][s]}, seq)
+    err = (yp - seq).abs().max().item()
+    check(yp.device == xs.device and err < 1e-5, f"pipeline_apply: max error {err}")
+    return dict(psum_pod=dict(shape=list(x.shape), equal_to_cpu=True,
+                              max_abs_err=(y.cpu() - y_cpu).abs().max().item()),
+                restore_shardings=dict(leaves=len(tree_leaves(tree)), equal=True),
+                pipeline=dict(stages=S, width=width, rows=64, n_micro=8,
+                              max_abs_err=err))
+
+
+def phase_fabric_full(data: bytes, full_frame: bytes, path_full: dict) -> None:
+    """The fabric at full size: `LZ4Engine(mesh=(2, 2))` at micro_batch 32
+    per shard, frame == `LZ4Engine(shards=4)`'s, blocks == the unsharded
+    frame's, each subframe == the unsharded engine on its slice; the v4
+    frame decoded by the sharded read path with on-device planning.  Counts
+    are zeroed just before each run and read just after."""
+    t_phase = time.perf_counter()
+    mesh, distinct = fabric_mesh((2, 2))
+    eng = LZ4Engine(mesh=mesh, micro_batch=32)
+    frame, dt, launches, (d,) = counted(lambda: eng.compress(data), eng)
+    write_by_dev = launches_by_device(KERNEL_MODULES)
+    check(all(launches[k] == 4 * d > 0 for k in WRITE_KERNELS),
+          f"fabric_full: launches {pick(launches, WRITE_KERNELS)} for 4 x {d}")
+    check(frame == LZ4Engine(device=DEV, shards=4).compress(data),
+          "fabric_full: mesh frame != the host path's")
+    check(payloads_of(frame) == payloads_of(full_frame),
+          "fabric_full: blocks != the unsharded frame's")
+    subframes = check_subframes(frame, data, 4, LZ4Engine(device=DEV))
+    # The mesh against the unsharded engine in turns (mesh, flat, mesh,
+    # flat; the counted run above is the first), on the host clock.
+    flat = LZ4Engine(device=DEV, micro_batch=32)
+    turns = [("mesh", dt)]
+    for who, e in (("unsharded", flat), ("mesh", eng), ("unsharded", flat)):
+        turns.append((who, counted(lambda: e.compress(data))[1]))
+    dec = LZ4DecodeEngine(mesh=mesh, plan_on_device=True)
+    out, ddt, dl, (dd,) = counted(lambda: dec.decode(frame), dec)
+    read_by_dev = launches_by_device(READ_KERNEL_MODULES)
+    want = dict(decode_wave=4 * dd, plan_speculative=4 * dd, crc32=0)
+    check(out == data and dec.stats.fallback_blocks == 0, "fabric_full: decode")
+    check(dd > 0 and pick(dl, READ_KERNELS) == want,
+          f"fabric_full: decode launches {pick(dl, READ_KERNELS)} != {want}")
+    st = eng.stats
+    say("fabric_full", mesh=[2, 2], distinct_cards=distinct, bytes_in=len(data),
+        frame_bytes=len(frame), frame_sha256=hashlib.sha256(frame).hexdigest(),
+        compress=dict(seconds=dt, input_GB_per_s=len(data) / dt / 1e9,
+                      blocks_per_s=st.blocks / dt, dispatches=d,
+                      launches=pick(launches, WRITE_KERNELS),
+                      launches_by_device=write_by_dev, stats=st.as_dict()),
+        path_full=path_full, subframes_equal=subframes,
+        turns=[dict(engine=w, seconds=t, input_GB_per_s=len(data) / t / 1e9)
+               for w, t in turns],
+        decode=dict(seconds=ddt, output_GB_per_s=len(data) / ddt / 1e9, dispatches=dd,
+                    launches=pick(dl, READ_KERNELS), launches_by_device=read_by_dev,
+                    stats=dec.stats.as_dict()),
+        seconds=time.perf_counter() - t_phase)
+
+
+def phase_fabric_breakdown(data: bytes) -> None:
+    """Where the mesh path's wall time goes: the fabric's spans (telemetry
+    on) over one (2, 2)-mesh compress, beside `breakdown`'s unsharded
+    spans of the same data, and the device's idle share."""
+    mesh, _ = fabric_mesh((2, 2))
+    eng = LZ4Engine(mesh=mesh, telemetry=True)
+    table, wall = span_table(lambda: eng.compress(data))
+    device = profile_device(lambda: LZ4Engine(mesh=mesh).compress(data))
+    say("fabric_breakdown", bytes_in=len(data), mesh=[2, 2], micro_batch=32,
+        wall_seconds=wall, spans=table, device=device)
+
+
 def main() -> None:
     # Bring-up aid: `--stop-after build|kernels|small` ends the run early
     # (exit 0, no result lines).  With no arguments the whole run.
@@ -2074,17 +2356,20 @@ def main() -> None:
     # (first touch of the host heap, growth of the device allocator), which
     # would otherwise land on whichever measured pass runs first.
     LZ4Engine(device=DEV).compress(data)
-    launches, frame = phase_path_full(data, micro_batch=32)   # THE write path
+    launches, frame, path_full = phase_path_full(data, micro_batch=32)   # THE write path
     phase_path_full(data, micro_batch=256)
     launches.update(phase_read_full(frame, data))             # THE read path
     phase_checkpoint_full(data)       # the consumers' path: save / restore
     phase_consumers_small(data)
     phase_salvage_full(data)
+    phase_fabric_small()              # the sharded fabric: host and mesh paths
+    phase_fabric_full(data, frame, path_full)
     staged = phase_path_staged_full(data, frame)              # the staged path
     launches.update({k: staged[k] for k in ("fibhash", "match_extend")})
     phase_breakdown(data[: 64 << 20])
     phase_read_breakdown(data[: 64 << 20])
     phase_staged_breakdown(data[: 64 << 20])
+    phase_fabric_breakdown(data[: 64 << 20])
     say("done", seconds=round(time.perf_counter() - t_start, 3))
 
     replaces = {

@@ -17,7 +17,10 @@ frames with v6 parity reconstruction — `LZ4DecodeEngine.salvage`,
 ``on_error="salvage"`` — retries, seeded fault injection); and the engines'
 consumers: crash-consistent checkpoints (`checkpoint.checkpoint`), the token
 data pipeline (`data.pipeline`), KV-cache offload (`serving.engine`) and
-gradient frames (`optim.grad_compress`).
+gradient frames (`optim.grad_compress`); and the sharded compression fabric
+(`distributed`: frame v4 through `LZ4Engine(shards=)` / `LZ4Engine(mesh=)`,
+sharded decode through `LZ4DecodeEngine(mesh=)`, meshes of torch devices
+held by one process).
 
     from repro_torch import LZ4Engine, LZ4DecodeEngine
     frame = LZ4Engine().compress(data)              # on the card

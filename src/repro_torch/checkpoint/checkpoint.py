@@ -42,8 +42,11 @@ Properties:
     are retried with decorrelated-jitter backoff
     (`repro_torch.resilience.retry`) around file opens and block reads.
 
-Not ported yet: ``restore(shardings=...)`` (ROADMAP A8, the sharded
-fabric) raises NotImplementedError.
+``restore(shardings=...)`` places each leaf by a
+`repro_torch.distributed.sharding.NamedSharding` on the one device its mesh
+holds; a leaf split or replicated across distinct devices is refused (one
+torch tensor cannot hold it; the form for sharded parameters comes with the
+models, ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -269,6 +272,54 @@ def _salvage_leaf(eng, e: dict, payloads, raws) -> tuple[bytes, list[int]]:
     return b"".join(parts)[:raw_size], failed
 
 
+def _sharding_device(sh, path: str):
+    """The device a `NamedSharding` puts a whole leaf on: the one device its
+    mesh holds.  A mesh of distinct devices would split or replicate the
+    leaf across them, which one torch tensor cannot hold."""
+    from repro_torch.distributed.sharding import NamedSharding
+
+    if not isinstance(sh, NamedSharding):
+        raise TypeError(f"sharding of {path} must be a repro_torch "
+                        f"NamedSharding or None, got {type(sh).__name__}")
+    for part in sh.spec:
+        for axis in (part if isinstance(part, tuple) else (part,)):
+            if axis is not None and axis not in sh.mesh.axis_names:
+                raise ValueError(f"sharding of {path}: axis {axis!r} not in "
+                                 f"mesh {sh.mesh.axis_names}")
+    devs = set(sh.mesh.devices.reshape(-1).tolist())
+    if len(devs) != 1:
+        raise NotImplementedError(
+            f"restore(shardings=...): the sharding of {path} spreads the leaf "
+            f"over {len(devs)} distinct devices, which one torch tensor "
+            "cannot hold; sharded parameters come with the models (ROADMAP "
+            "queue A, item A9)")
+    return devs.pop()
+
+
+def _sharding_devices(like, shardings) -> dict:
+    """Leaf path -> device, for every leaf of ``like`` that ``shardings``
+    (a tree of ``like``'s structure holding NamedSharding or None) places."""
+    out = {}
+
+    def walk(tree, sh, path):
+        if isinstance(tree, dict):
+            if not isinstance(sh, dict) or set(sh) != set(tree):
+                raise ValueError(f"shardings do not match the tree at {path or '/'}")
+            for k in tree:
+                walk(tree[k], sh[k], f"{path}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            if not isinstance(sh, (list, tuple)) or len(sh) != len(tree):
+                raise ValueError(f"shardings do not match the tree at {path or '/'}")
+            for i, (t, s) in enumerate(zip(tree, sh)):
+                walk(t, s, f"{path}/{i}")
+        elif tree is not None and sh is not None:
+            out[path] = _sharding_device(sh, path)
+
+    if shardings is not None:
+        walk(like, shardings, "")
+    return out
+
+
 def restore(ckpt_dir: str, step: int, like, shardings=None,
             decode_engine=None, on_error: str = "raise",
             report: dict | None = None):
@@ -277,7 +328,10 @@ def restore(ckpt_dir: str, step: int, like, shardings=None,
 
     Each restored leaf has the manifest's dtype and shape and lives on the
     device of its ``like`` leaf — on the card when that is ``meta``.
-    `shardings`: not ported yet (ROADMAP A8); anything but None raises.
+    `shardings`: None, or a tree of ``like``'s structure holding
+    `NamedSharding` (the leaf goes to the one device its mesh holds, e.g.
+    any spec on a `single_device_mesh`) or None (the ``like`` placement); a
+    sharding over distinct devices raises NotImplementedError.
     `decode_engine`: optional `LZ4DecodeEngine` override (default:
     `default_decode_engine()`, the device executor on the card).
     `on_error`: ``"raise"`` (default) fails the whole restore on the first
@@ -292,10 +346,7 @@ def restore(ckpt_dir: str, step: int, like, shardings=None,
     """
     if on_error not in ("raise", "salvage"):
         raise ValueError('on_error must be "raise" or "salvage"')
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) places leaves across a mesh, which "
-            "repro_torch does not have yet (ROADMAP queue A, item A8)")
+    placed = _sharding_devices(like, shardings)
     t0 = time.perf_counter()
     eng = decode_engine or default_decode_engine()
     final = os.path.join(ckpt_dir, f"ckpt_{step}")
@@ -365,8 +416,9 @@ def restore(ckpt_dir: str, step: int, like, shardings=None,
                 obs.counter("resilience.lost_blocks",
                             "blocks salvage could not recover").inc(len(failed))
             raw_total += len(raw)
-            out_leaves[path] = leaf_from_bytes(raw, e["dtype"], e["shape"],
-                                               target_device(spec))
+            out_leaves[path] = leaf_from_bytes(
+                raw, e["dtype"], e["shape"],
+                placed[path] if path in placed else target_device(spec))
     if obs.is_enabled():
         obs.counter("checkpoint.restores", "checkpoints restored").inc()
         obs.counter("checkpoint.restore_bytes_raw",

@@ -14,10 +14,8 @@ import torch
 
 from .core.compressor import BlockRecords
 
-# Reference-engine keywords with no meaning here (dropped) and keywords that
-# select machinery this package does not have yet (refused).
+# Reference-engine keywords with no meaning here.
 _DROPPED = ("use_pallas", "donate")
-_REFUSED = ("mesh", "shard_axes", "shards")
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -55,45 +53,35 @@ def layout_from_numpy(seg, fields, total, device="cpu"):
             _t(_batched(total, 1), torch.int32, device))
 
 
+def _check_port_mesh(kw: dict) -> None:
+    """A mesh crosses only as this package's own `Mesh` (a JAX mesh holds
+    JAX devices, which torch cannot launch on): `fabric.check_mesh`."""
+    if kw.get("mesh") is not None:
+        from .distributed.fabric import check_mesh
+
+        check_mesh(kw["mesh"], kw.get("shard_axes"))
+
+
 def engine_config(**kw) -> dict:
     """Map the reference `LZ4Engine` keywords onto this package's.
 
     ``use_pallas`` / ``donate`` are dropped (there is one kernel route and
-    no buffer donation); ``mesh`` / ``shard_axes`` / ``shards`` are refused
-    unless None (the sharded fabric is not ported).  Everything else passes
-    through; the caller adds ``device=``.
+    no buffer donation); ``shards`` passes through, and ``mesh`` /
+    ``shard_axes`` when the mesh is this package's own `Mesh` (a JAX mesh
+    raises TypeError).  Everything else passes through; the caller adds
+    ``device=``.
     """
-    out = {}
-    for k, v in kw.items():
-        if k in _DROPPED:
-            continue
-        if k in _REFUSED:
-            if v is not None:
-                raise NotImplementedError(
-                    f"{k}= selects the sharded fabric, which repro_torch "
-                    "does not have yet (ROADMAP queue A, item A8)")
-            continue
-        out[k] = v
-    return out
+    _check_port_mesh(kw)
+    return {k: v for k, v in kw.items() if k not in _DROPPED}
 
 
 def decode_engine_config(**kw) -> dict:
     """Map the reference `LZ4DecodeEngine` keywords onto this package's.
 
     ``use_pallas`` is dropped (there is one kernel route); ``mesh`` /
-    ``shard_axes`` are refused unless None (the sharded fabric, ROADMAP A8).
-    Everything else, ``on_error`` included, passes through; the caller adds
+    ``shard_axes`` pass through on `engine_config`'s terms.  Everything
+    else, ``on_error`` included, passes through; the caller adds
     ``device=``.
     """
-    out = {}
-    for k, v in kw.items():
-        if k == "use_pallas":
-            continue
-        if k in ("mesh", "shard_axes"):
-            if v is not None:
-                raise NotImplementedError(
-                    f"{k}= selects the sharded fabric, which repro_torch "
-                    "does not have yet (ROADMAP queue A, item A8)")
-            continue
-        out[k] = v
-    return out
+    _check_port_mesh(kw)
+    return {k: v for k, v in kw.items() if k != "use_pallas"}

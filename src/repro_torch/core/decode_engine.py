@@ -34,8 +34,11 @@ random access through the frame's block table (`read_block`, `read_range`,
 `read_range_device`).  `salvage()` (and ``on_error="salvage"``) recovers
 every undamaged block of a damaged frame (`repro_torch.resilience.salvage`).
 
-Not ported yet (refused with NotImplementedError): ``mesh=`` /
-``shard_axes=`` (ROADMAP A8, the sharded fabric).
+``mesh=`` (a `repro_torch.distributed.sharding.Mesh` of more than one
+shard) routes frame-block decode through the sharded fabric
+(`distributed.fabric.decode_items_sharded`: each shard's blocks decoded on
+its device, under either planner); `decode_to_device` and `salvage` keep
+their single-device paths, as in the reference.
 """
 from __future__ import annotations
 
@@ -187,7 +190,7 @@ class DecodeStats:
     device_blocks: int = 0     # blocks decoded on the device
     fallback_blocks: int = 0   # device executor blocks decoded on host
     host_bytes: int = 0        # bytes fetched device -> host
-    shards: int = 0            # always 0 here: the sharded fabric is not ported
+    shards: int = 0            # sharded-fabric calls: mesh shard count
     calls: int = 0             # 1 per finished call (totals.calls sums them)
 
     def as_dict(self) -> dict:
@@ -229,10 +232,22 @@ class LZ4DecodeEngine:
             raise ValueError(f"executor must be one of {_EXECUTORS}")
         if on_error not in ("raise", "salvage"):
             raise ValueError('on_error must be "raise" or "salvage"')
-        if mesh is not None or shard_axes is not None:
-            raise NotImplementedError(
-                "mesh= / shard_axes= select the sharded fabric, which "
-                "repro_torch does not have yet (ROADMAP queue A, item A8)")
+        # The read-side mirror of `LZ4Engine(mesh=...)`: with a mesh of more
+        # than one shard, frame-block decode routes through
+        # `distributed.fabric.decode_items_sharded`.  A mesh engine's own
+        # single-device work runs on shard 0's device unless ``device``
+        # says otherwise.
+        if mesh is not None:
+            from repro_torch.distributed import fabric
+
+            axes, n = fabric.check_mesh(mesh, shard_axes)
+            self.mesh, self.shard_axes, self.shards = mesh, axes, n
+            if device is None:
+                device = fabric.shard_devices(mesh, axes)[0]
+        else:
+            if shard_axes is not None:
+                raise ValueError("shard_axes requires mesh")
+            self.mesh, self.shard_axes, self.shards = None, (), 1
         if executor is None:
             executor = "device"
         if plan_on_device and executor != "device":
@@ -242,7 +257,6 @@ class LZ4DecodeEngine:
         if micro_batch < 1:
             raise ValueError("micro_batch must be >= 1")
         self.device = _resolve_device(device, "LZ4DecodeEngine")
-        self.mesh, self.shard_axes, self.shards = None, (), 1
         if workers is None:
             workers = 1 if executor in ("serial", "device") \
                 else min(4, os.cpu_count() or 1)
@@ -386,6 +400,17 @@ class LZ4DecodeEngine:
                              st: DecodeStats) -> list[bytes]:
         ob = self._obs_on()
         out: list[bytes | None] = [None] * len(payloads)
+        if self.mesh is not None and self.shards > 1:
+            from repro_torch.distributed import fabric
+
+            st.shards = self.shards
+            items = [(i, bytes(p),
+                      usizes[i] if usizes is not None else None, None,
+                      bool(raw))
+                     for i, (p, raw) in enumerate(zip(payloads, raws))]
+            out = fabric.decode_items_sharded(self, items, st)
+            st.bytes_out = sum(len(d) for d in out)
+            return out
         if self.executor == "device" and self.plan_on_device:
             self._decode_blocks_specplan(payloads, raws, usizes, out, st)
         elif self.executor == "device":
@@ -727,6 +752,13 @@ class LZ4DecodeEngine:
         """
         if st is None:
             st = self.stats
+        if self.mesh is not None and self.shards > 1:
+            from repro_torch.distributed import fabric
+
+            st.shards = self.shards
+            items = [(i, frame[b["offset"]: b["offset"] + b["csize"]],
+                      b["usize"], b["crc"], b["raw"]) for i, b in entries]
+            return fabric.decode_items_sharded(self, items, st)
         if self.executor == "device":
             return self._decode_entries_device(frame, entries, st=st)
         ob = self._obs_on()

@@ -32,6 +32,12 @@ The engine runs on the card unless the caller asks for the CPU:
 ``LZ4Engine()`` means ``device="cuda"`` and raises when no CUDA device is
 available; ``LZ4Engine(device="cpu")`` runs the kernels' plain versions.
 
+``shards=`` / ``mesh=`` route `compress` through the sharded fabric
+(`repro_torch.distributed.fabric`) and the output becomes a frame v4
+container: ``shards=n`` alone partitions the block stack over n producers on
+the engine's device (the host path), a ``mesh`` of more than one shard
+launches each shard's rows on that shard's device (the mesh path).
+
 `EngineStats.host_bytes` counts every byte fetched from the device, so the
 host-transfer saving of ``device_emit`` is directly observable.
 
@@ -111,7 +117,7 @@ class EngineStats:
     bytes_out: int = 0
     host_bytes: int = 0  # bytes fetched device -> host (records or emit buffers)
     candidate_impl: str = ""  # the RESOLVED impl that ran ("auto" never runs)
-    shards: int = 0  # always 0 here: the sharded fabric is not ported yet
+    shards: int = 0  # sharded-fabric calls: shard count of the v4 container
     calls: int = 0  # 1 per finished call (so totals.calls counts calls)
 
     def as_dict(self) -> dict:
@@ -197,6 +203,9 @@ class LZ4Engine:
                  content_crc: bool = False,
                  parity_group: int | None = None,
                  telemetry: bool | None = None,
+                 mesh=None,
+                 shard_axes: tuple[str, ...] | None = None,
+                 shards: int | None = None,
                  device=None):
         if micro_batch < 1:
             raise ValueError("micro_batch must be >= 1")
@@ -204,6 +213,32 @@ class LZ4Engine:
             raise ValueError('drain must be "sliced" or "full"')
         if scan_impl not in ("sequential", "associative"):
             raise ValueError('scan_impl must be "sequential" or "associative"')
+        # Sharded fabric: ``mesh`` splits the block stack over
+        # ``shard_axes`` (default: every mesh axis) and the output becomes
+        # a frame v4; ``shards`` without a mesh selects the host-partition
+        # path (the per-shard oracle) writing the same v4 shape.
+        # ``shards=None`` with no mesh keeps the v3 writer.  A mesh engine
+        # runs its own (host-path) work on shard 0's device unless
+        # ``device`` says otherwise.
+        if mesh is not None:
+            from repro_torch.distributed import fabric
+
+            axes, n = fabric.check_mesh(mesh, shard_axes)
+            if shards is not None and shards != n:
+                raise ValueError(f"shards={shards} != mesh shard count {n}")
+            if not device_emit and n > 1:
+                raise ValueError(
+                    "the mesh fabric path requires device_emit=True "
+                    "(host emission does not run per shard)")
+            self.mesh, self.shard_axes, self.shards = mesh, axes, n
+            if device is None:
+                device = fabric.shard_devices(mesh, axes)[0]
+        else:
+            if shard_axes is not None:
+                raise ValueError("shard_axes requires mesh")
+            if shards is not None and shards < 1:
+                raise ValueError("shards must be >= 1")
+            self.mesh, self.shard_axes, self.shards = None, (), shards
         self.device = _resolve_device(device)
         self.hash_bits = hash_bits
         self.max_match = max_match
@@ -245,6 +280,7 @@ class LZ4Engine:
         # never lose updates.  `stats` stays a last-call-wins pointer.
         self._totals_lock = threading.Lock()
         self._sp = obs.span_factory(False)  # refreshed per call
+        self._worker: "LZ4Engine | None" = None  # fabric host-path clone
         # `decompress` decodes where the engine compresses: a decode engine
         # (device executor) on the same device, owned by this engine.
         from .decode_engine import LZ4DecodeEngine  # local: engine <-> decoder
@@ -253,6 +289,20 @@ class LZ4Engine:
 
     def _obs_on(self) -> bool:
         return obs.enabled_for(self.telemetry)
+
+    def _shard_worker(self) -> "LZ4Engine":
+        """Single-device clone for the fabric's host-partition path (same
+        datapath config, no mesh, this engine's device — the per-shard
+        oracle)."""
+        if self._worker is None:
+            self._worker = LZ4Engine(
+                hash_bits=self.hash_bits, max_match=self.max_match,
+                pws=self.pws, micro_batch=self.micro_batch,
+                scan_impl=self.scan_impl, candidate_impl=self.candidate_impl,
+                device_emit=self.device_emit, drain=self.drain,
+                telemetry=self.telemetry, device=self.device,
+            )
+        return self._worker
 
     def _finish_call(self, st: EngineStats) -> None:
         """Fold the finished call's stats into `totals` + the obs registry."""
@@ -394,12 +444,23 @@ class LZ4Engine:
 
         Blocks whose exact compressed size (computed on the device) does not
         beat the raw size are stored as raw passthrough, so worst-case
-        expansion is the frame header, not LZ4's literal-run overhead.
+        expansion is the frame header, not LZ4's literal-run overhead.  With
+        a mesh or ``shards=`` the call routes through the sharded fabric and
+        the output is a frame v4 container.
         """
         st = EngineStats(candidate_impl=self.candidate_impl)
         self.stats = st
         ob = self._obs_on()
         sp = obs.span_factory(ob)
+        if self.shards is not None:
+            from repro_torch.distributed import fabric
+
+            try:
+                with sp("compress.total", bytes_in=len(data),
+                        shards=self.shards):
+                    return fabric.compress_sharded(self, data, st)
+            finally:
+                self._finish_call(st)
         ratio_hist = obs.registry().histogram(
             "engine.block_ratio", obs.DEFAULT_RATIO_BUCKETS,
             "per-block compression ratio usize/csize (raw blocks -> 1.0)",
@@ -439,7 +500,9 @@ class LZ4Engine:
         """bytes -> list of raw LZ4 blocks (one per 64 KB, no framing).
 
         Every block is valid LZ4 (no passthrough); lengths must travel
-        out-of-band.
+        out-of-band.  Sharded engines partition the block stack across
+        shards (the split `compress` makes) and return the same flat,
+        globally ordered list.
         """
         st = EngineStats(candidate_impl=self.candidate_impl)
         self.stats = st
@@ -448,6 +511,18 @@ class LZ4Engine:
             st.blocks = 1
             self._finish_call(st)
             return [emit_block(b"", [], [], [], [], 0)]
+        if self.shards is not None:
+            from repro_torch.distributed import fabric
+
+            try:
+                with obs.span_factory(self._obs_on())(
+                        "compress.total", bytes_in=len(data), framing=False,
+                        shards=self.shards):
+                    blocks = fabric.shard_blocks_sharded(self, data, st)
+                st.bytes_out = sum(len(b) for b in blocks)
+                return blocks
+            finally:
+                self._finish_call(st)
         try:
             with obs.span_factory(self._obs_on())(
                     "compress.total", bytes_in=len(data), framing=False):

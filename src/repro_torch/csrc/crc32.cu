@@ -73,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -277,15 +279,26 @@ crc32_kernel(const uint8_t* __restrict__ data, const int* __restrict__ ns,
   }
 }
 
-// Steps per CTA: the smallest power of two (at most MAX_ITERS) for which
-// the launch has at most CTAS_PER_SM CTAs per SM, or one CTA covers a row.
-int iters_for(int M, long long K) {
-  static int sms = -1;
-  if (sms < 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+// SMs of device `dev`, asked once per device and kept by the ordinal
+// cudaGetDevice gives on every launch (the cards of one box may differ, and
+// a mesh launches on several; 0 in the table: not asked yet).
+constexpr int MAX_DEVICES = 64;
+
+int sm_count(int dev) {
+  static std::atomic<int> known[MAX_DEVICES];
+  int n = dev >= 0 && dev < MAX_DEVICES ? known[dev].load(std::memory_order_relaxed) : 0;
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (dev >= 0 && dev < MAX_DEVICES) known[dev].store(n, std::memory_order_relaxed);
   }
+  return n;
+}
+
+// Steps per CTA: the smallest power of two (at most MAX_ITERS) for which
+// the launch has at most CTAS_PER_SM CTAs per SM of `dev`, or one CTA
+// covers a row.
+int iters_for(int dev, int M, long long K) {
+  const int sms = sm_count(dev);
   int it = 1;
   while (it < MAX_ITERS && (long long)STRIDE * it < K &&
          (long long)M * ((K + (long long)STRIDE * it - 1) / ((long long)STRIDE * it)) >
@@ -306,7 +319,9 @@ extern "C" int crc32_launch(const void* data, const void* n, void* out,
                             const void* tables, void* acc, int M, long long K,
                             void* stream) {
   if (M < 1 || K < 0 || acc == nullptr) return (int)cudaErrorInvalidValue;
-  const int iters = iters_for(M, K);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const int iters = iters_for(dev, M, K);
   int lg_span = 0;
   while ((1 << lg_span) < STRIDE * iters) ++lg_span;
   const long long span = 1LL << lg_span;

@@ -67,6 +67,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -245,13 +248,36 @@ decode_wave_wide_kernel(const uint8_t* __restrict__ blocks,
 // memory has the SM to itself, so it takes all its threads.
 int threads_for(int smem) { return 2 * smem > SMEM_MAX ? THREADS_ALONE : THREADS; }
 
-// Whether the card can schedule a cluster of C CTAs with `smem` bytes of
-// shared memory each (cudaOccupancyMaxActiveClusters), asked once per (C,
-// smem) pair and remembered.
-bool cluster_fits(int C, int smem) {
-  static int known_c[8], known_smem[8], known_ok[8], n_known = 0;
-  for (int i = 0; i < n_known; ++i)
-    if (known_c[i] == C && known_smem[i] == smem) return known_ok[i];
+// Launch facts are kept per device, by the ordinal cudaGetDevice gives on
+// every launch: the cards of one box may differ, and a mesh launches the
+// same kernel on several of them.
+constexpr int MAX_DEVICES = 64;
+
+// SMs of device `dev`, asked once per device (0 in the table: not asked).
+int sm_count(int dev) {
+  static std::atomic<int> known[MAX_DEVICES];
+  int n = dev >= 0 && dev < MAX_DEVICES ? known[dev].load(std::memory_order_relaxed) : 0;
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (dev >= 0 && dev < MAX_DEVICES) known[dev].store(n, std::memory_order_relaxed);
+  }
+  return n;
+}
+
+// Whether device `dev` (the current one) can schedule a cluster of C CTAs
+// with `smem` bytes of shared memory each (cudaOccupancyMaxActiveClusters),
+// asked once per (device, C, smem) and remembered.
+bool cluster_fits(int dev, int C, int smem) {
+  struct Known { int c, smem; bool ok; };
+  static std::mutex mu;
+  static Known known[MAX_DEVICES][8];
+  static int n_known[MAX_DEVICES];
+  const bool cached = dev >= 0 && dev < MAX_DEVICES;
+  if (cached) {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < n_known[dev]; ++i)
+      if (known[dev][i].c == C && known[dev][i].smem == smem) return known[dev][i].ok;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)C);
   cfg.blockDim = dim3(threads_for(smem));
@@ -267,22 +293,16 @@ bool cluster_fits(int C, int smem) {
   const bool ok = cudaOccupancyMaxActiveClusters(&n, decode_wave_kernel, &cfg) ==
                       cudaSuccess && n > 0;
   cudaGetLastError();  // clear the error of a refused query
-  if (n_known < 8) {
-    known_c[n_known] = C;
-    known_smem[n_known] = smem;
-    known_ok[n_known++] = ok;
+  if (cached) {
+    std::lock_guard<std::mutex> lock(mu);
+    if (n_known[dev] < 8) known[dev][n_known[dev]++] = Known{C, smem, ok};
   }
   return ok;
 }
 
-// The CTAs per block (cluster size) a launch of M blocks takes.
-int cluster_for(int M) {
-  static int sms = -1;
-  if (sms < 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+// The CTAs per block (cluster size) a launch of M blocks takes on `dev`.
+int cluster_for(int dev, int M) {
+  const int sms = sm_count(dev);
   int C = CLUSTER;
   while (C > CLUSTER_MIN && M * C > sms) C /= 2;
   return C;
@@ -305,14 +325,16 @@ extern "C" int decode_wave_launch(const void* blocks, const void* lit_blk,
         (const int*)total, (uint8_t*)out, (int*)scratch, B, K, rounds);
     return (int)cudaGetLastError();
   }
-  const int C = cluster_for(M);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const int C = cluster_for(dev, M);
   const int lg = slice_log2(K, C);
   const int smem = smem_bytes(lg);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       decode_wave_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  if (!cluster_fits(C, smem)) return (int)cudaErrorInvalidConfiguration;
+  if (!cluster_fits(dev, C, smem)) return (int)cudaErrorInvalidConfiguration;
   const int vec_in = (K & 3) == 0 && (((uintptr_t)ptr | (uintptr_t)lit_blk) & 15) == 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)M * C);

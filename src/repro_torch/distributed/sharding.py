@@ -1,0 +1,191 @@
+"""Device meshes for the port: the counterpart of the mesh part of the JAX
+package's `distributed/sharding.py`.
+
+A `Mesh` is a named grid of `torch.device`s, held by ONE process: the
+fabric (`distributed/fabric.py`) launches each shard's rows on that shard's
+device from the calling thread, so no process group and no collective is
+involved.  Axes follow the reference: ``("data", "model")`` on one pod,
+``("pod", "data", "model")`` across pods.
+
+A mesh may name a device more than once (``[torch.device("cpu")] * 8``, or
+``cuda:0`` four times): the counterpart of XLA's forced host device count
+(``--xla_force_host_platform_device_count``), which is how the reference's
+tests build meshes of fake devices.  Each mesh position is still a shard of
+its own — the fabric launches once per position, not once per distinct
+device — so the mesh path runs the same code on the CPU, on one card and on
+several.
+
+Torch has no ``with mesh:``; `use_mesh` is a plain context manager over the
+process-wide current mesh.  `PartitionSpec` and `NamedSharding` exist for
+`checkpoint.restore(shardings=)`.  The parameter rules (`param_specs`,
+`constrain`, ...) need the models and are not here (ROADMAP A9).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+__all__ = ["Mesh", "make_mesh", "single_device_mesh", "set_global_mesh",
+           "get_mesh", "use_mesh", "batch_axes", "local_batch",
+           "PartitionSpec", "P", "NamedSharding", "sharding"]
+
+_STATE: dict[str, Any] = {"mesh": None}
+
+
+def _normalize(device) -> torch.device:
+    """``cuda`` -> ``cuda:<current index>``, so that device comparisons and
+    per-device caches agree; CUDA devices must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"mesh device {device!r} requested but "
+                "torch.cuda.is_available() is False")
+        index = torch.cuda.current_device() if dev.index is None else dev.index
+        if index >= torch.cuda.device_count():
+            raise RuntimeError(f"mesh device cuda:{index} does not exist "
+                               f"({torch.cuda.device_count()} visible)")
+        return torch.device("cuda", index)
+    if dev.type != "cpu":
+        raise ValueError(f"mesh devices must be CUDA devices or the CPU, "
+                         f"got {device!r}")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """A named grid of devices.  ``devices`` is an object array of
+    `torch.device` shaped like the mesh (one axis per name)."""
+
+    axis_names: tuple[str, ...]
+    devices: np.ndarray
+
+    def __post_init__(self):
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"devices of shape {self.devices.shape} do not "
+                             f"match axes {self.axis_names}")
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"repeated axis name in {self.axis_names}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Ordered ``{axis: size}``, as `jax.sharding.Mesh.shape`."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def device_at(self, coords) -> torch.device:
+        """The device at mesh position ``coords`` (one index per axis)."""
+        return self.devices[tuple(coords)]
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, devices="
+                f"{[str(d) for d in self.devices.reshape(-1)]})")
+
+
+def make_mesh(shape, axes, devices=None) -> Mesh:
+    """A mesh of ``shape`` over ``axes`` (counterpart of `make_mesh_compat`).
+
+    Default devices: ``cuda:0 … cuda:n-1`` for n = prod(shape); raises when
+    fewer cards are visible, as `jax.make_mesh` does.  An explicit
+    ``devices`` list (row-major over the mesh) may name a device more than
+    once — ``[torch.device("cpu")] * 8``, or ``cuda:0`` four times — the
+    counterpart of XLA's forced host device count.
+    """
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} and axes {axes} differ in length")
+    n = int(np.prod(shape, dtype=np.int64))
+    if devices is None:
+        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if visible < n:
+            raise RuntimeError(
+                f"a mesh of shape {shape} needs {n} CUDA devices, "
+                f"{visible} visible; pass devices= to repeat one")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    devices = [_normalize(d) for d in devices]
+    if len(devices) != n:
+        raise ValueError(f"a mesh of shape {shape} needs {n} devices, "
+                         f"got {len(devices)}")
+    grid = np.empty((n,), dtype=object)
+    grid[:] = devices
+    return Mesh(axes, grid.reshape(shape))
+
+
+def single_device_mesh(device=None) -> Mesh:
+    """A (1, 1) mesh over ``("data", "model")`` on ``device`` (default: the
+    current card)."""
+    return make_mesh((1, 1), ("data", "model"),
+                     devices=None if device is None else [device])
+
+
+def set_global_mesh(mesh: Mesh | None) -> None:
+    _STATE["mesh"] = mesh
+
+
+def get_mesh() -> Mesh | None:
+    return _STATE["mesh"]
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Mesh):
+    """Make ``mesh`` the current mesh for the ``with`` body."""
+    prev = _STATE["mesh"]
+    _STATE["mesh"] = mesh
+    try:
+        yield mesh
+    finally:
+        _STATE["mesh"] = prev
+
+
+def batch_axes(mesh: Mesh | None = None, pure_dp: bool = False) -> tuple:
+    """The data-parallel axes of ``mesh`` (default: the current mesh)."""
+    mesh = mesh or get_mesh()
+    if mesh is None:
+        return ()
+    names = ("pod", "data", "model") if pure_dp else ("pod", "data")
+    return tuple(a for a in names if a in mesh.axis_names)
+
+
+def local_batch(global_batch: int, mesh: Mesh | None = None) -> int:
+    """Per-replica batch: ``global_batch`` over the data-parallel ways."""
+    mesh = mesh or get_mesh()
+    if mesh is None:
+        return global_batch
+    n = int(np.prod([mesh.shape[a] for a in batch_axes(mesh)])) or 1
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} does not divide over "
+                         f"{n} data-parallel ways")
+    return global_batch // n
+
+
+class PartitionSpec(tuple):
+    """Per-dimension mesh axes of an array (None: not split), as
+    `jax.sharding.PartitionSpec`."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """An array's placement: ``spec`` over ``mesh``."""
+
+    mesh: Mesh
+    spec: PartitionSpec
+
+
+def sharding(spec: PartitionSpec, mesh: Mesh | None = None) -> NamedSharding:
+    return NamedSharding(mesh or get_mesh(), spec)

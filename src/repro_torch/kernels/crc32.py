@@ -35,6 +35,7 @@ __all__ = ["crc32", "crc32_plain", "launches", "reset_launches",
            "kernel_tables"]
 
 launches = 0  # kernel launches since import / the last reset_launches()
+launches_by_device: dict[int, int] = {}  # the same, per CUDA device index
 
 # The table layout (csrc/crc32.cu; the tests hold these to the source).
 THREADS = 256
@@ -48,6 +49,7 @@ _acc: dict[tuple[torch.device, int], torch.Tensor] = {}
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_device.clear()
 
 
 def _lib():
@@ -167,4 +169,5 @@ def crc32(data: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "crc32")
     launches += 1
+    launches_by_device[dev.index] = launches_by_device.get(dev.index, 0) + 1
     return out

@@ -24,6 +24,7 @@ from .ref import decode_gather_ref as decode_wave_plain
 __all__ = ["decode_wave", "decode_wave_plain", "launches", "reset_launches"]
 
 launches = 0  # kernel launches since import / the last reset_launches()
+launches_by_device: dict[int, int] = {}  # the same, per CUDA device index
 
 MAX_K = 65536  # the cluster kernel's uint16 table; wider K takes the wide kernel
 
@@ -31,6 +32,7 @@ MAX_K = 65536  # the cluster kernel's uint16 table; wider K takes the wide kerne
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_device.clear()
 
 
 def _lib():
@@ -98,4 +100,5 @@ def decode_wave(blocks: torch.Tensor, lit_blk: torch.Tensor,
                  rounds, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "decode_wave")
     launches += 1
+    launches_by_device[dev.index] = launches_by_device.get(dev.index, 0) + 1
     return out

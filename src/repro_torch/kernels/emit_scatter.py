@@ -23,11 +23,13 @@ from .ref import emit_bytes_ref as emit_scatter_plain
 __all__ = ["emit_scatter", "emit_scatter_plain", "launches", "reset_launches"]
 
 launches = 0  # kernel launches since import / the last reset_launches()
+launches_by_device: dict[int, int] = {}  # the same, per CUDA device index
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_device.clear()
 
 
 def _lib():
@@ -89,4 +91,5 @@ def emit_scatter(blocks_u8: torch.Tensor, seg: torch.Tensor,
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "emit_scatter")
     launches += 1
+    launches_by_device[dev.index] = launches_by_device.get(dev.index, 0) + 1
     return out

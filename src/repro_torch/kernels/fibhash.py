@@ -22,11 +22,13 @@ from .ref import fibhash_ref
 __all__ = ["fibhash", "fibhash_plain", "launches", "reset_launches"]
 
 launches = 0  # kernel launches since import / the last reset_launches()
+launches_by_device: dict[int, int] = {}  # the same, per CUDA device index
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_device.clear()
 
 
 def fibhash_plain(blocks_u8: torch.Tensor, positions: int, hash_bits: int):
@@ -89,4 +91,5 @@ def fibhash(blocks_u8: torch.Tensor, positions: int, hash_bits: int = 8):
                  M, B, P, hash_bits, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "fibhash")
     launches += 1
+    launches_by_device[dev.index] = launches_by_device.get(dev.index, 0) + 1
     return words, hashes

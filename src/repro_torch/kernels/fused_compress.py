@@ -26,6 +26,7 @@ __all__ = ["fused_compress", "fused_compress_plain", "launches",
            "reset_launches"]
 
 launches = 0  # kernel launches since import / the last reset_launches()
+launches_by_device: dict[int, int] = {}  # the same, per CUDA device index
 
 # Dynamic shared memory one CTA may ask for on sm_90 (227 KB).
 _SMEM_LIMIT = 232448
@@ -47,6 +48,7 @@ class Plan(NamedTuple):
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_device.clear()
 
 
 def _round16(x: int) -> int:
@@ -163,4 +165,5 @@ def fused_compress(blocks_u8: torch.Tensor, ns: torch.Tensor, positions: int,
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "fused_compress")
     launches += 1
+    launches_by_device[dev.index] = launches_by_device.get(dev.index, 0) + 1
     return cand, lengths

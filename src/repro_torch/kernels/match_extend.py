@@ -24,11 +24,13 @@ from .ref import match_extend_ref as match_extend_plain
 __all__ = ["match_extend", "match_extend_plain", "launches", "reset_launches"]
 
 launches = 0  # kernel launches since import / the last reset_launches()
+launches_by_device: dict[int, int] = {}  # the same, per CUDA device index
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_device.clear()
 
 
 def _lib():
@@ -98,4 +100,5 @@ def match_extend(blocks_u8: torch.Tensor, cand: torch.Tensor,
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "match_extend")
     launches += 1
+    launches_by_device[dev.index] = launches_by_device.get(dev.index, 0) + 1
     return out

@@ -27,6 +27,7 @@ __all__ = ["plan_speculative", "plan_speculative_plain", "launches",
            "reset_launches", "max_b", "scratch_bytes", "FIELDS"]
 
 launches = 0  # kernel launches since import / the last reset_launches()
+launches_by_device: dict[int, int] = {}  # the same, per CUDA device index
 
 # The largest B for which the shared-memory kernel's chain select (every
 # offset reachable from 0) equals the plain version's 16 doubling rounds:
@@ -41,6 +42,7 @@ FIELDS = ("is_start", "lit_start", "lit_len", "ls_end", "off", "mlen", "flags")
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_device.clear()
 
 
 def _lib():
@@ -115,4 +117,5 @@ def plan_speculative(blocks: torch.Tensor, n: torch.Tensor):
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "plan_speculative")
     launches += 1
+    launches_by_device[dev.index] = launches_by_device.get(dev.index, 0) + 1
     return tuple(outs)

@@ -25,11 +25,13 @@ __all__ = ["window_select", "window_select_plain", "launches",
            "reset_launches"]
 
 launches = 0  # kernel launches since import / the last reset_launches()
+launches_by_device: dict[int, int] = {}  # the same, per CUDA device index
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_device.clear()
 
 
 def _lib():
@@ -88,4 +90,5 @@ def window_select(valid: torch.Tensor, lengths: torch.Tensor, pws: int):
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "window_select")
     launches += 1
+    launches_by_device[dev.index] = launches_by_device.get(dev.index, 0) + 1
     return emit, pos, length

@@ -174,7 +174,18 @@ def test_restore_like_placeholders_and_refusals(ckpt_dirs):
                    "i": [torch.empty((50, 40), dtype=torch.int32, device="meta"), None]}
     with pytest.raises(RuntimeError, match="restores to the card"):
         restore(ckpt_dirs["port"], 3, meta)
-    with pytest.raises(NotImplementedError, match="A8"):
+    # shardings= (refused until ROADMAP A8 was ported) places the leaves:
+    # over a CPU mesh even where `like` holds `meta` placeholders.  The
+    # case against the reference is in tests/test_torch_distributed.py.
+    from repro_torch._tree import tree_map
+    from repro_torch.distributed.sharding import NamedSharding, P, single_device_mesh
+
+    one = single_device_mesh("cpu")
+    got, _ = restore(ckpt_dirs["port"], 3, meta,
+                     shardings=tree_map(lambda _: NamedSharding(one, P()), meta))
+    want, _ = restore(ckpt_dirs["port"], 3, as_torch(np_tree()))
+    assert_trees_equal(got, want)
+    with pytest.raises(ValueError, match="do not match"):
         restore(ckpt_dirs["port"], 3, as_torch(np_tree()), shardings={})
     with pytest.raises(TypeError):
         restore(ckpt_dirs["port"], 3, np_tree())

@@ -294,11 +294,22 @@ def test_process_executor_uses_spawn():
 
 
 def test_refusals_and_keyword_mapping():
-    for kw in (dict(mesh=object()), dict(shard_axes=("data",))):
-        with pytest.raises(NotImplementedError, match="A8"):
-            LZ4DecodeEngine(device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="A8"):
-            compat.decode_engine_config(**kw)
+    # The fabric keywords (refused until ROADMAP A8 was ported) now run: a
+    # mesh of two shards decodes through the sharded fabric
+    # (tests/test_torch_fabric.py holds it against the reference).
+    from repro_torch.distributed.sharding import make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    kw = compat.decode_engine_config(mesh=mesh, shard_axes=("model",),
+                                     use_pallas=True)
+    assert kw == dict(mesh=mesh, shard_axes=("model",))
+    frame, data = frames()["v3"]
+    dec = LZ4DecodeEngine(device="cpu", **kw)
+    assert dec.decode(frame) == data and dec.stats.shards == 2
+    with pytest.raises(TypeError, match="make_mesh"):
+        LZ4DecodeEngine(device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="shard_axes requires mesh"):
+        LZ4DecodeEngine(device="cpu", shard_axes=("data",))
     # The salvage hooks (refused until ROADMAP A6 was ported) now run; the
     # chaos matrix against the reference is tests/test_torch_resilience.py.
     assert compat.decode_engine_config(on_error="salvage") == dict(on_error="salvage")
@@ -318,7 +329,8 @@ def test_refusals_and_keyword_mapping():
     assert compat.decode_engine_config(
         use_pallas=True, mesh=None, shard_axes=None, on_error="raise",
         micro_batch=4, plan_on_device=True) == dict(
-        on_error="raise", micro_batch=4, plan_on_device=True)
+        mesh=None, shard_axes=None, on_error="raise", micro_batch=4,
+        plan_on_device=True)
     assert set(DecodeStats().as_dict()) == set(
         JaxDecodeEngine().stats.as_dict())
 

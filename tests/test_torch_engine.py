@@ -138,10 +138,23 @@ def test_records_equal_reference_and_compat_round_trip(name):
 def test_engine_config_mapping_and_refusals():
     assert compat.engine_config(use_pallas=True, donate=False, micro_batch=8,
                                 mesh=None, shards=None, drain="full") == \
-        dict(micro_batch=8, drain="full")
-    for k in ("mesh", "shards", "shard_axes"):
-        with pytest.raises(NotImplementedError):
-            compat.engine_config(**{k: 2})
+        dict(micro_batch=8, drain="full", mesh=None, shards=None)
+    # The fabric keywords pass through and run (the fabric against the
+    # reference: tests/test_torch_fabric.py); a JAX mesh is refused.
+    from repro.distributed.sharding import single_device_mesh as jax_mesh
+    from repro_torch.distributed.sharding import make_mesh
+
+    mesh = make_mesh((2, 1), ("data", "model"), devices=["cpu"] * 2)
+    kw = compat.engine_config(mesh=mesh, shard_axes=("data",), use_pallas=True)
+    assert kw == dict(mesh=mesh, shard_axes=("data",))
+    data = multiblock_corpus()
+    frame = LZ4Engine(device="cpu", scan_impl="associative", **kw).compress(data)
+    assert frame == LZ4Engine(device="cpu", scan_impl="associative",
+                              **compat.engine_config(shards=2)).compress(data)
+    assert frame_info(frame)["shard_count"] == 2
+    assert decode_frame_serial(frame) == data
+    with pytest.raises(TypeError, match="make_mesh"):
+        compat.engine_config(mesh=jax_mesh())
     assert resolve_candidate_impl("auto") == resolve_candidate_impl("fused") == "fused"
     data = b"staged path " * 400
     for impl in ("sort", "sortkey", "scatter"):

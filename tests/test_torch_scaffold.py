@@ -57,7 +57,11 @@ def test_every_module_imports_without_jax_or_the_reference():
                 "repro_torch.core.decode_plan",
                 "repro_torch.core.decode_engine", "repro_torch.compat",
                 "repro_torch.obs.trace", "repro_torch.obs.metrics",
-                "repro_torch.resilience.errors"):
+                "repro_torch.resilience.errors",
+                "repro_torch.distributed.sharding",
+                "repro_torch.distributed.fabric",
+                "repro_torch.distributed.fault",
+                "repro_torch.distributed.pipeline"):
         assert mod in res["imported"], mod
     probe = res["probe"]
     assert probe["torch"] == torch.__version__

@@ -69,6 +69,47 @@ def multiblock_corpus() -> bytes:
             + bytes(r.integers(0, 6, 3000, np.uint8)))
 
 
+def fabric_corpus(n_blocks: int, seed: int = 0) -> bytes:
+    """Seeded input spanning exactly ``n_blocks`` 64 KB blocks (the last a
+    third full) for the sharded fabric: RLE runs, structured text and noise
+    pieces, so blocks differ in payload size and some are stored raw.
+    Numpy only: the reference's subprocesses import it too."""
+    r = rng(seed)
+    total = (n_blocks - 1) * MAX_BLOCK + MAX_BLOCK // 3
+    parts, n = [], 0
+    while n < total:
+        kind = int(r.integers(8))
+        if kind == 7:     # a run of noise long enough to fill a raw block
+            piece = r.integers(0, 256, 70000, np.uint8).tobytes()
+        elif kind % 3 == 0:
+            piece = bytes([int(r.integers(256))]) * int(r.integers(100, 9000))
+        elif kind % 3 == 1:
+            piece = (b"the quick brown fox %d " % int(r.integers(1000))) \
+                * int(r.integers(10, 300))
+        else:
+            piece = r.integers(0, 256, int(r.integers(500, 8000)),
+                               np.uint8).tobytes()
+        parts.append(piece)
+        n += len(piece)
+    return b"".join(parts)[:total]
+
+
+def corrupt_coded_block(frame: bytes, info: dict, head: bool = False
+                        ) -> tuple[bytes, int]:
+    """``frame`` with payload bytes of its last coded block inverted — three
+    from the middle (a literal, as a rule: a checksum mismatch), or with
+    ``head`` the first four (the first token: a parse error) — and that
+    block's index.  Takes either package's `frame_info(frame)`."""
+    k = max(i for i, b in enumerate(info["blocks"]) if not b["raw"])
+    b = info["blocks"][k]
+    spots = (0, 1, 2, 3) if head else \
+        tuple((b["csize"] // 2 + d) % b["csize"] for d in (0, 7, 19))
+    bad = bytearray(frame)
+    for d in spots:
+        bad[b["offset"] + d] ^= 0xFF
+    return bytes(bad), k
+
+
 def encode(data: bytes, seqs) -> bytes:
     """LZ4 block of `data` from (lit_start, lit_len, match_len, offset)
     sequences, through the port's emitter."""
