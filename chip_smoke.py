@@ -24,7 +24,14 @@ pipeline, gradient frames) and `salvage_full` (three damaged blocks of a
 (2, 1), (2, 2) and (1, 8) shards — distinct cards where enough are visible,
 else cuda:0 repeated — sharded decode under both planners, the int8
 pod-sum, `restore(shardings=)` and the pipeline schedule) and `fabric_full`
-(the 256 MiB data over a (2, 2) mesh, compressed and decoded).
+(the 256 MiB data over a (2, 2) mesh, compressed and decoded).  Then the
+serving path: `models_small` (the ten architectures at `.reduced()` on the
+card against the CPU, within 1e-3), `serve_full` (qwen3-1.7b at full
+width: `ServingEngine` answers 8 requests; prefill/decode consistency
+within 2e-3; the float32 forward on the card against the CPU) and
+`serve_offload` (a live session's ~470 MB bfloat16 KV cache offloaded
+through `LZ4Engine(device="cuda")`, restored to the card bit-exact with
+on-device planning, and decoding continued from it identically).
 Checkpoints and shards are written under `build/smoke_scratch/` and
 removed.
 Imports `repro_torch` only — never the JAX reference.  One JSON line per
@@ -113,6 +120,10 @@ from repro_torch.resilience.inject import (  # noqa: E402
     install,
 )
 from repro_torch.serving import engine as serving  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.configs.base import all_arch_names, get_config  # noqa: E402
+from repro_torch.launch.inputs import make_batch  # noqa: E402
+from repro_torch.models import lm, moe  # noqa: E402
 
 SEED = 20260731
 DEV = torch.device("cuda")
@@ -1379,6 +1390,7 @@ def profile_device(fn) -> dict | str:
         rows.sort(key=lambda r: -r[1])
         return dict(wall_seconds_under_profiler=prof_wall, busy_seconds=busy,
                     idle_share=1 - busy / prof_wall,
+                    device_ops=sum(r[2] for r in rows),
                     top=[dict(name=k[:60], seconds=t, count=c) for k, t, c in rows[:12]])
     except Exception as e:  # noqa: BLE001
         return f"not measured ({type(e).__name__}: {e})"
@@ -2330,6 +2342,282 @@ def phase_fabric_breakdown(data: bytes) -> None:
         wall_seconds=wall, spans=table, device=device)
 
 
+# -- the serving path: models, ServingEngine, a live KV cache offloaded --------
+
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_OFFLOAD = dict(batch=4, prompt=512, cache_len=1024, new_tokens=8)
+SMALL_TOL = 1e-3        # port on the card against the port on the CPU, float32
+CONSISTENCY_TOL = 2e-3  # the reference's own (tests/test_models_smoke.py)
+
+
+def serve_config():
+    """The served model at full width (a CPU rehearsal swaps this out)."""
+    return get_config(SERVE_ARCH)
+
+
+def to_cpu(tree):
+    return tree_map(lambda t: t.cpu(), tree)
+
+
+def check_close(a: torch.Tensor, b: torch.Tensor, tol: float, what: str) -> float:
+    """Hold ``a`` to ``b`` within ``tol`` (rtol = atol); the max |a - b|."""
+    a, b = a.float().cpu(), b.float().cpu()
+    check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+          f"{what}: shape {tuple(a.shape)} vs {tuple(b.shape)}, or not finite")
+    err = float((a - b).abs().max()) if a.numel() else 0.0
+    check(torch.allclose(a, b, rtol=tol, atol=tol), f"{what}: max |difference| {err} over {tol}")
+    return err
+
+
+def served_requests(vocab: int, n: int = 8, new_tokens: int = 12, seed: int = 0):
+    """The requests of the reference's `launch/serve.py`: prompt
+    lengths 4-23 and tokens from `default_rng(seed)`."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for uid in range(n):
+        plen = int(rng.integers(4, 24))
+        out.append(serving.Request(uid=uid, prompt=rng.integers(0, vocab, plen).tolist(),
+                                   max_new_tokens=new_tokens))
+    return out
+
+
+def run_engine(cfg, params, device, n: int = 4, new_tokens: int = 12, **kw):
+    eng = serving.ServingEngine(cfg, params, device=device, **kw)
+    for r in served_requests(cfg.vocab_size, n, new_tokens):
+        eng.add_request(r)
+    return eng.run()
+
+
+def phase_models_small() -> None:
+    """Each of the ten architectures at `.reduced()` (float32 compute, TF32
+    off) on the card and on the CPU with the same weights: `forward_logits`,
+    `prefill` (logits and every cache leaf) and one `decode_step` within
+    1e-3; a 4-request `ServingEngine` run gives the same greedy tokens on
+    both.  Mixtral's `moe_ffn` on a (2, 1) mesh of cuda:0 repeated == the
+    CPU port's on a (2, 1) mesh of the CPU (capacity per shard)."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    for arch in all_arch_names():
+        cfg = get_config(arch).reduced()
+        params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(SEED + 60),
+                                device=DEV)
+        cpu = to_cpu(params)
+        batch = make_batch(1, cfg, 2, 32, device=DEV)
+        cbatch = to_cpu(batch)
+        e = {"forward": check_close(lm.forward_logits(params, batch, cfg),
+                                    lm.forward_logits(cpu, cbatch, cfg), SMALL_TOL,
+                                    f"{arch} forward_logits")}
+        cache, logits = lm.prefill(params, batch, cfg, 40)
+        ccache, clogits = lm.prefill(cpu, cbatch, cfg, 40)
+        e["prefill"] = check_close(logits, clogits, SMALL_TOL, f"{arch} prefill")
+        e["cache"] = max(check_close(a, b, SMALL_TOL, f"{arch} prefill cache")
+                         for a, b in zip(tree_leaves(cache), tree_leaves(ccache)))
+        tok = torch.full((2,), 7, dtype=torch.int32)
+        logits, _ = lm.decode_step(params, cache, tok.to(DEV), cache["pos"], cfg)
+        clogits, _ = lm.decode_step(cpu, ccache, tok, ccache["pos"], cfg)
+        e["decode"] = check_close(logits, clogits, SMALL_TOL, f"{arch} decode_step")
+        on_card = run_engine(cfg, params, DEV, new_tokens=6)
+        on_cpu = run_engine(cfg, cpu, "cpu", new_tokens=6)
+        check([r.output for r in on_card] == [r.output for r in on_cpu],
+              f"{arch}: ServingEngine tokens differ between the card and the CPU")
+        errs[arch] = e
+    # mixtral's MoE on a data mesh: the capacity of each of 2 shards
+    cfg = dataclasses.replace(get_config("mixtral-8x7b").reduced(), capacity_factor=1.0)
+    p = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(SEED + 61), device=DEV)
+    moe_p = tree_map(lambda t: t[0], p["segments"][0]["layers"]["0"]["moe"])
+    x = torch.randn((4, 10, cfg.d_model), generator=torch.Generator(device=DEV)
+                    .manual_seed(SEED + 62), device=DEV)
+    with use_mesh(make_mesh((2, 1), ("data", "model"), devices=[DEV] * 2)):
+        y, aux = moe.moe_ffn(moe_p, x, cfg)
+    with use_mesh(make_mesh((2, 1), ("data", "model"), devices=["cpu"] * 2)):
+        cy, caux = moe.moe_ffn(to_cpu(moe_p), x.cpu(), cfg)
+    one_shard, _ = moe.moe_ffn(to_cpu(moe_p), x.cpu(), cfg)
+    errs["mixtral_moe_mesh_2x1"] = {"y": check_close(y, cy, SMALL_TOL, "moe_ffn on (2, 1)"),
+                                    "aux": check_close(aux, caux, SMALL_TOL, "moe aux")}
+    check(not torch.allclose(cy, one_shard, rtol=SMALL_TOL, atol=SMALL_TOL),
+          "moe_ffn: 2 shards gave the one-shard result (capacity not per shard)")
+    say("models_small", archs=len(errs) - 1, tol=SMALL_TOL, max_abs_err=errs,
+        engine_tokens_equal=True, seconds=time.perf_counter() - t_phase)
+
+
+def synced(fn):
+    """(result, seconds on the host clock ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def decode_ms(params, cache, cfg, steps: int) -> float:
+    """Mean ms of one greedy `decode_step` (host clock, synchronized)."""
+    tok = torch.zeros((cache["layers"][0]["0"]["k"].shape[1],), dtype=torch.int32,
+                      device=DEV)
+
+    def run():
+        c, t = cache, tok
+        for _ in range(steps):
+            logits, c = lm.decode_step(params, c, t, c["pos"], cfg)
+            t = torch.argmax(logits, -1).to(torch.int32)
+    run()   # warm-up
+    return synced(run)[1] * 1e3 / steps
+
+
+def host_ram_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def phase_serve_full() -> tuple:
+    """qwen3-1.7b at full width (float32 parameters, bfloat16 compute) on
+    the card: (a) a `ServingEngine(max_batch=4, cache_len=256)` answers the
+    8 requests of the reference's `launch/serve.py` (12 new tokens each);
+    (b) float32 consistency, B = 2, S = 32: prefill == forward_logits[:, -1] and one
+    decode_step == teacher forcing, within the reference's own 2e-3; (c)
+    the float32 forward, B = 1, S = 16, on the card == on the CPU within
+    1e-3.  Returns (config, parameters) for `serve_offload`."""
+    t_phase = time.perf_counter()
+    cfg = serve_config()
+    g = torch.Generator(device=DEV).manual_seed(SEED + 63)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = synced(lambda: lm.init_params(cfg, g, device=DEV))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    # (a) the 8 requests of the reference's launch/serve.py
+    run_engine(cfg, params, DEV, n=4, new_tokens=2)   # warm-up: cuBLAS handles, allocator
+    torch.cuda.reset_peak_memory_stats()
+    obs.reset()
+    obs.configure(enabled=True)
+    done, serve_s = synced(lambda: run_engine(cfg, params, DEV, n=8, new_tokens=12,
+                                              max_batch=4, cache_len=256))
+    spans = {}
+    for r in obs.tracer().finished():
+        spans.setdefault(r["name"], []).append(r["dur_ns"] / 1e9)
+    obs.configure(enabled=False)
+    obs.reset()
+    peak = torch.cuda.max_memory_allocated()
+    new_tokens = sum(len(r.output) for r in done)
+    check(len(done) == 8 and all(len(r.output) == 12 for r in done)
+          and all(0 <= t < cfg.vocab_size for r in done for t in r.output),
+          "serve_full: requests not answered")
+    # prefill and decode step on their own, synchronized
+    batch = make_batch(SEED, cfg, 4, 24, device=DEV)
+    lm.prefill(params, batch, cfg, 256)
+    (cache, _), prefill_s = synced(lambda: lm.prefill(params, batch, cfg, 256))
+    # The per-call casts of float32 weights to bfloat16 (the reference does
+    # the same): steps with the weights cast once beforehand, in turns
+    # (float32, bfloat16, float32, bfloat16) on the host clock.
+    bf16 = tree_map(lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t, params)
+    turns = [decode_ms(w, cache, cfg, steps=12) for w in (params, bf16, params, bf16)]
+    step_ms, step_ms_bf16 = np.mean(turns[0::2]), np.mean(turns[1::2])
+    decode_device = profile_device(lambda: decode_ms(params, cache, cfg, steps=4))
+    del bf16, cache
+    # (b) consistency at full width, float32 compute
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    b32 = make_batch(1, cfg32, 2, 32, device=DEV)
+    full = lm.forward_logits(params, b32, cfg32)
+    cache, pre = lm.prefill(params, b32, cfg32, 40)
+    err_pre = check_close(pre, full[:, -1], CONSISTENCY_TOL, "serve_full prefill vs forward")
+    new = torch.full((2,), 7, dtype=torch.int32, device=DEV)
+    dec, _ = lm.decode_step(params, cache, new, cache["pos"], cfg32)
+    full2 = lm.forward_logits(params, {"tokens": torch.cat([b32["tokens"], new[:, None]], 1)},
+                              cfg32)
+    err_dec = check_close(dec, full2[:, -1], CONSISTENCY_TOL,
+                          "serve_full decode vs teacher forcing")
+    del full, full2, cache
+    # (c) the same float32 forward on the CPU
+    need = 2 * param_bytes
+    avail = host_ram_available()
+    if avail >= need:
+        b16 = make_batch(2, cfg32, 1, 16, device=DEV)
+        card = lm.forward_logits(params, b16, cfg32)
+        cpu_params = to_cpu(params)
+        (host, cpu_s) = synced(lambda: lm.forward_logits(cpu_params, to_cpu(b16), cfg32))
+        cpu_check = dict(ran=True, max_abs_err=check_close(card, host, SMALL_TOL,
+                                                           "serve_full card vs CPU"),
+                         tol=SMALL_TOL, cpu_seconds=cpu_s)
+        del cpu_params
+    else:
+        cpu_check = dict(ran=False, reason=f"host RAM available {avail} B < {need} B "
+                                           "for a CPU copy of the weights")
+    say("serve_full", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.hd, vocab=cfg.vocab_size,
+        params=n_params, param_bytes=param_bytes, compute_dtype=cfg.compute_dtype,
+        init_seconds=init_s,
+        engine=dict(requests=len(done), new_tokens=new_tokens, seconds=serve_s,
+                    tokens_per_s=new_tokens / serve_s,
+                    spans={k: dict(count=len(v), seconds=sum(v))
+                           for k, v in sorted(spans.items())},
+                    max_memory_allocated=peak, outputs=[r.output for r in done[:2]]),
+        prefill=dict(batch=4, prompt=24, ms=prefill_s * 1e3),
+        decode=dict(batch=4, ms_per_step=step_ms, ms_per_step_bf16_weights=step_ms_bf16,
+                    turns_ms=turns, cast_share=1 - step_ms_bf16 / step_ms,
+                    device=decode_device),
+        consistency=dict(tol=CONSISTENCY_TOL, prefill_vs_forward=err_pre,
+                         decode_vs_teacher_forcing=err_dec),
+        card_vs_cpu=cpu_check, seconds=time.perf_counter() - t_phase)
+    return cfg, params
+
+
+def phase_serve_offload(cfg, params) -> None:
+    """A live full-width session (B = 4, 512-token prompts, cache_len 1024):
+    its bfloat16 KV cache offloaded through `LZ4Engine(device="cuda")` and
+    restored to the card (`to_device=True`, `plan_on_device=True`), every
+    leaf bit-exact, no plaintext byte to the host; 8 more greedy tokens from
+    the original cache and from the restored one are identical, logits and
+    all.  Counts are zeroed just before the offload and the restore and
+    read just after."""
+    t_phase = time.perf_counter()
+    o = SERVE_OFFLOAD
+    batch = make_batch(SEED + 64, cfg, o["batch"], o["prompt"], device=DEV)
+    (cache, logits), prefill_s = synced(lambda: lm.prefill(params, batch, cfg,
+                                                            o["cache_len"]))
+    kv = [t for t in tree_leaves(cache) if t.dtype == torch.bfloat16]
+    kv_bytes = sum(t.numel() * t.element_size() for t in kv)
+    enc = LZ4Engine(device=DEV)
+    dec = LZ4DecodeEngine(device=DEV, plan_on_device=True)
+    (blob, stats), off_s, off_launches, (d,) = counted(
+        lambda: serving.offload_cache(cache, engine=enc), enc)
+    h0 = dec.totals.host_bytes
+    restored, res_s, res_launches, (rd,) = counted(
+        lambda: serving.restore_cache(blob, dec, to_device=True), dec)
+    host_bytes = dec.totals.host_bytes - h0
+    launches = {k: off_launches[k] for k in WRITE_KERNELS}
+    launches.update({k: res_launches[k] for k in READ_KERNELS})
+    check(trees_same(restored, cache), "serve_offload: a restored leaf differs")
+    check(all(x.device.type == DEV.type and x._is_view() for x in tree_leaves(restored)),
+          "serve_offload: restored leaves are not views on the card")
+    check(host_bytes == 0, f"serve_offload: {host_bytes} plaintext bytes to the host")
+    check(all(v > 0 for v in launches.values()), f"serve_offload: launches {launches}")
+
+    def generate(c):
+        tok, toks, outs = torch.argmax(logits, -1).to(torch.int32), [], []
+        for _ in range(o["new_tokens"]):
+            lg, c = lm.decode_step(params, c, tok, c["pos"], cfg)
+            tok = torch.argmax(lg, -1).to(torch.int32)
+            toks.append(tok.tolist())
+            outs.append(lg)
+        return toks, outs
+    toks, outs = generate(cache)
+    toks_r, outs_r = generate(restored)
+    check(toks == toks_r and all(torch.equal(a, b) for a, b in zip(outs, outs_r)),
+          "serve_offload: decoding from the restored cache differs")
+    say("serve_offload", arch=cfg.name, batch=o["batch"], prompt=o["prompt"],
+        cache_len=o["cache_len"], prefill_ms=prefill_s * 1e3, leaves=len(tree_leaves(cache)),
+        kv_bytes=kv_bytes, cache_bytes=stats["raw"], frame_bytes=stats["compressed"],
+        ratio=stats["ratio"],
+        offload=dict(seconds=off_s, GB_per_s=stats["raw"] / off_s / 1e9, dispatches=d),
+        restore=dict(seconds=res_s, GB_per_s=stats["raw"] / res_s / 1e9, dispatches=rd,
+                     host_bytes=host_bytes, leaves_are_views=True),
+        launches=launches, continued_tokens=toks, continued_identical=True,
+        seconds=time.perf_counter() - t_phase)
+
+
 def main() -> None:
     # Bring-up aid: `--stop-after build|kernels|small` ends the run early
     # (exit 0, no result lines).  With no arguments the whole run.
@@ -2347,6 +2635,7 @@ def main() -> None:
     phase_path_staged_small(*phase_path_small())
     phase_read_small()
     phase_resilience_small()
+    phase_models_small()
     if stop_after == "small":
         return
     t0 = time.perf_counter()
@@ -2364,6 +2653,7 @@ def main() -> None:
     phase_salvage_full(data)
     phase_fabric_small()              # the sharded fabric: host and mesh paths
     phase_fabric_full(data, frame, path_full)
+    phase_serve_offload(*phase_serve_full())   # the serving path at full width
     staged = phase_path_staged_full(data, frame)              # the staged path
     launches.update({k: staged[k] for k in ("fibhash", "match_extend")})
     phase_breakdown(data[: 64 << 20])

@@ -20,7 +20,11 @@ data pipeline (`data.pipeline`), KV-cache offload (`serving.engine`) and
 gradient frames (`optim.grad_compress`); and the sharded compression fabric
 (`distributed`: frame v4 through `LZ4Engine(shards=)` / `LZ4Engine(mesh=)`,
 sharded decode through `LZ4DecodeEngine(mesh=)`, meshes of torch devices
-held by one process).
+held by one process); and the serving path (`configs`, `models`,
+`serving.engine.ServingEngine`, `launch`): the reference's ten
+architectures, their stacked parameter trees and sharding specs, prefill
+and decode, with a paused session's KV cache offloaded through the
+kernels above.
 
     from repro_torch import LZ4Engine, LZ4DecodeEngine
     frame = LZ4Engine().compress(data)              # on the card

@@ -17,8 +17,11 @@ several.
 
 Torch has no ``with mesh:``; `use_mesh` is a plain context manager over the
 process-wide current mesh.  `PartitionSpec` and `NamedSharding` exist for
-`checkpoint.restore(shardings=)`.  The parameter rules (`param_specs`,
-`constrain`, ...) need the models and are not here (ROADMAP A9).
+`checkpoint.restore(shardings=)` and the parameter rules: `param_specs` /
+`param_shardings` give the reference's spec for every leaf of a parameter
+tree (from its path and shape), and `constrain` / `constrain_batch` are the
+identity (see there).  Not ported yet: a leaf split across distinct devices
+(`checkpoint.restore(shardings=)` refuses it; ROADMAP A9b).
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ import torch
 
 __all__ = ["Mesh", "make_mesh", "single_device_mesh", "set_global_mesh",
            "get_mesh", "use_mesh", "batch_axes", "local_batch",
-           "PartitionSpec", "P", "NamedSharding", "sharding"]
+           "PartitionSpec", "P", "NamedSharding", "sharding", "constrain",
+           "constrain_batch", "param_specs", "param_shardings"]
 
 _STATE: dict[str, Any] = {"mesh": None}
 
@@ -189,3 +193,102 @@ class NamedSharding:
 
 def sharding(spec: PartitionSpec, mesh: Mesh | None = None) -> NamedSharding:
     return NamedSharding(mesh or get_mesh(), spec)
+
+
+def constrain(x, *spec_elems):
+    """The reference's ``with_sharding_constraint`` under the current mesh:
+    the identity here.  A constraint changes where XLA places a value, never
+    the value, and in one process a torch tensor lives on exactly one
+    device, so there is nothing to place."""
+    return x
+
+
+def constrain_batch(x, seq_shard: bool = False, pure_dp: bool = False):
+    """The reference's batch-axis (and Megatron sequence-axis) constraint:
+    the identity here, as `constrain`."""
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Parameter sharding rules (path-based), as the reference's.
+# ---------------------------------------------------------------------------
+
+def _leaf_spec(path: str, shape: tuple[int, ...], fsdp: bool, tp: int) -> PartitionSpec:
+    """Sharding spec for one parameter, from its tree path and shape."""
+    stacked = "segments" in path  # stacked params carry a leading repeats axis
+    off = 1 if stacked else 0
+
+    def fs(ax):  # data-axis (FSDP/ZeRO-3) shard for big dims only
+        return "data" if (fsdp and shape[off + ax] >= 1024) else None
+
+    name = path.split("/")[-2] if path.endswith("/w") or path.endswith("/b") else path.split("/")[-1]
+
+    def pad(spec_tail: tuple) -> PartitionSpec:
+        full = (None,) * off + spec_tail
+        if len(full) != len(shape):
+            raise ValueError(f"spec {full} does not fit {path} of shape {shape}")
+        return PartitionSpec(*full)
+
+    nd = len(shape) - off
+    if path.endswith("/b") or nd == 1:  # biases, norms, scalars
+        return pad((None,) * nd)
+    if name in ("embed", "unembed"):
+        # (V, d): vocab on model, d on data (fsdp)
+        return pad(("model", fs(1)))
+    if name in ("wq",):
+        return pad((fs(0), "model"))
+    if name in ("wk", "wv"):  # kv heads < TP on every assigned arch: replicate TP
+        return pad((fs(0), None))
+    if name in ("wo",):
+        return pad(("model", fs(1)))
+    if name in ("w_gate", "w_up", "w_in", "wx", "wgate", "wa", "wi_gate"):
+        return pad((fs(0), "model"))
+    if name in ("w_down", "w_out", "wo_proj"):
+        return pad(("model", fs(1)))
+    if name in ("w1", "w3"):  # MoE (E, d, F)
+        return pad((None, fs(1), "model"))
+    if name in ("w2",):       # MoE (E, F, d)
+        return pad((None, "model", fs(2)))
+    if name in ("wr",):       # router (d, E)
+        return pad((None, None))
+    if nd == 2:
+        # generic 2D: TP on the trailing dim if it divides, FSDP on the other
+        if shape[off + 1] % tp == 0 and shape[off + 1] >= tp:
+            return pad((fs(0), "model"))
+        return pad((fs(0), None))
+    return pad((None,) * nd)
+
+
+def param_specs(params_shape, fsdp: bool, mesh: Mesh | None = None, pure_dp: bool = False):
+    """Tree of `PartitionSpec`s matching a params tree (leaves: anything with
+    a ``.shape``, e.g. tensors on ``meta``)."""
+    mesh = mesh or get_mesh()
+    tp = mesh.shape["model"] if mesh is not None else 1
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, f"{path}/{i}") for i, v in enumerate(tree))
+        spec = _leaf_spec(path, tuple(tree.shape), fsdp, tp)
+        if pure_dp:  # no TP: drop "model"; widen FSDP shards to both axes
+            elems = [None if el == "model" else el for el in spec]
+            elems = [("data", "model") if el == "data" else el for el in elems]
+            spec = PartitionSpec(*elems)
+        return spec
+
+    return walk(params_shape, "")
+
+
+def param_shardings(params_shape, fsdp: bool, mesh: Mesh | None = None):
+    """`param_specs` as `NamedSharding`s over ``mesh``."""
+    mesh = mesh or get_mesh()
+
+    def walk(tree):
+        if isinstance(tree, PartitionSpec):
+            return NamedSharding(mesh, tree)
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return type(tree)(walk(v) for v in tree)
+
+    return walk(param_specs(params_shape, fsdp, mesh))

@@ -1,2 +1,2 @@
-"""KV-cache offload through the LZ4 engines (`engine.py`; the serving loop
-itself waits for the models, ROADMAP A9)."""
+"""The serving loop (`ServingEngine`, `Request`) and KV-cache offload through
+the LZ4 engines (`engine.py`)."""

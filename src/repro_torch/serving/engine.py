@@ -1,5 +1,11 @@
-"""KV-cache offload through the LZ4 engines: the offload side of the JAX
+"""Batched serving engine: prefill + decode loop with a request scheduler,
+and LZ4 KV-cache offload for paused sessions — the port of the JAX
 package's `serving/engine.py`.
+
+Static-batch design: requests are grouped into batches of at most
+``max_batch``; prompts are right-aligned and padded to the batch max, and
+decode proceeds greedily until ``max_new_tokens``.  The loop runs eagerly
+on ``device`` (the card by default; no ``torch.compile``, no CUDA graph).
 
 A paused session's cache (a tree of tensors) is serialized and compressed
 leaf by leaf through an `LZ4Engine` (serialize -> compress -> host RAM or
@@ -7,12 +13,10 @@ disk) and restored bit-exactly — with ``to_device=True`` decoded on the card
 into a uint8 tensor that each leaf is a view of, so no plaintext byte
 crosses to the host.  Blobs are the reference's: one self-describing frame
 per leaf with its shape and dtype name, byte-identical between packages.
-
-Not ported yet: ``ServingEngine`` and ``Request`` (the prefill/decode loop,
-which needs the models: ROADMAP A9).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -20,12 +24,82 @@ import torch
 
 from repro_torch import obs
 from repro_torch._tree import flatten, leaf_bytes, leaf_from_bytes, torch_dtype, unflatten
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.decode_engine import FrameReader, default_decode_engine
 from repro_torch.core.engine import default_engine
 from repro_torch.core.frame import block_crc, encode_frame
+from repro_torch.models import lm
 from repro_torch.resilience.errors import FrameError
 
-__all__ = ["offload_cache", "restore_cache", "OffloadedCacheReader"]
+__all__ = ["Request", "ServingEngine", "offload_cache", "restore_cache",
+           "OffloadedCacheReader"]
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: list[int]
+    max_new_tokens: int = 16
+    output: list | None = None
+
+
+class ServingEngine:
+    """Greedy batched generation over ``params`` (on ``device``)."""
+
+    def __init__(self, cfg: ModelConfig, params, max_batch: int = 4,
+                 cache_len: int = 256, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if params["embed"].device != self.device:
+            raise ValueError(f"params are on {params['embed'].device}, the engine "
+                             f"serves on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.cache_len = cache_len
+        self.queue: list[Request] = []
+
+    def add_request(self, req: Request):
+        self.queue.append(req)
+
+    def _run_batch(self, reqs: list[Request]) -> None:
+        cfg, dev = self.cfg, self.device
+        cdt = getattr(torch, cfg.compute_dtype)
+        B = len(reqs)
+        max_p = max(len(r.prompt) for r in reqs)
+        toks = np.zeros((B, max_p), np.int32)
+        for i, r in enumerate(reqs):  # right-align so last token is real
+            toks[i, max_p - len(r.prompt):] = r.prompt
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        if cfg.family == "encdec":
+            batch["enc_embeds"] = torch.zeros((B, cfg.enc_seq, cfg.d_model), dtype=cdt,
+                                              device=dev)
+        if cfg.family == "vlm":
+            batch["vision_embeds"] = torch.zeros((B, cfg.vision_tokens, cfg.d_model),
+                                                 dtype=cdt, device=dev)
+        with obs.span("serving.prefill", batch=B, max_prompt=max_p):
+            cache, logits = lm.prefill(self.params, batch, cfg, self.cache_len)
+        outs = [[] for _ in reqs]
+        steps = max(r.max_new_tokens for r in reqs)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        with obs.span("serving.decode_loop", batch=B, steps=steps):
+            for _ in range(steps):
+                for o, t in zip(outs, tok.tolist()):
+                    o.append(t)
+                logits, cache = lm.decode_step(self.params, cache, tok, cache["pos"], cfg)
+                tok = torch.argmax(logits, -1).to(torch.int32)
+        for r, o in zip(reqs, outs):
+            r.output = o[: r.max_new_tokens]
+
+    def run(self) -> list[Request]:
+        done = []
+        while self.queue:
+            batch = self.queue[: self.max_batch]
+            self.queue = self.queue[self.max_batch:]
+            self._run_batch(batch)
+            done.extend(batch)
+        return done
 
 
 def offload_cache(cache, engine=None) -> tuple[list, dict]:
