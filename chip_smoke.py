@@ -31,7 +31,16 @@ width: `ServingEngine` answers 8 requests; prefill/decode consistency
 within 2e-3; the float32 forward on the card against the CPU) and
 `serve_offload` (a live session's ~470 MB bfloat16 KV cache offloaded
 through `LZ4Engine(device="cuda")`, restored to the card bit-exact with
-on-device planning, and decoding continued from it identically).
+on-device planning, and decoding continued from it identically).  Then
+training: `train_small` (before ``--stop-after small``: the ten
+architectures at `.reduced()`, `train_loss` and every gradient leaf on the
+card against the CPU within 1e-3, one `make_train_step` step's parameters,
+m and v within 1e-5), `train_drill` (`launch/train.py` at qwen3-1.7b's
+`--scale 100m`, 12 steps, a checkpoint every 4, once uninterrupted and once
+failing at step 7: the loss falls, the recovered run ends at the same loss,
+the saves launch the write kernels and the restore `decode_wave`) and
+`train_full` (qwen3-1.7b at full width, B = 1 x 4096: ms per step,
+tokens/s, MFU against 989 TFLOP/s, peak memory, idle share).
 Checkpoints and shards are written under `build/smoke_scratch/` and
 removed.
 Imports `repro_torch` only — never the JAX reference.  One JSON line per
@@ -55,6 +64,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -98,7 +108,7 @@ from repro_torch.kernels import fused_compress as k_fused  # noqa: E402
 from repro_torch.kernels import match_extend as k_ext  # noqa: E402
 from repro_torch.kernels import plan_speculative as k_plan  # noqa: E402
 from repro_torch.kernels import window_select as k_select  # noqa: E402
-from repro_torch._tree import flatten, tree_map  # noqa: E402
+from repro_torch._tree import flatten, flatten_with_paths, tree_map  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
 from repro_torch.core.engine import default_engine  # noqa: E402
 from repro_torch.data.pipeline import ShardedTokenPipeline  # noqa: E402
@@ -121,9 +131,13 @@ from repro_torch.resilience.inject import (  # noqa: E402
 )
 from repro_torch.serving import engine as serving  # noqa: E402
 from repro_torch import obs  # noqa: E402
-from repro_torch.configs.base import all_arch_names, get_config  # noqa: E402
+from repro_torch.configs.base import SHAPES, all_arch_names, get_config  # noqa: E402
+from repro_torch.launch import roofline, steps  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.inputs import make_batch  # noqa: E402
 from repro_torch.models import lm, moe  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 
 SEED = 20260731
 DEV = torch.device("cuda")
@@ -2618,6 +2632,234 @@ def phase_serve_offload(cfg, params) -> None:
         seconds=time.perf_counter() - t_phase)
 
 
+# -- training: train_loss and its gradient, AdamW, the loop's checkpoints ------
+
+TRAIN_SMALL_TOL = 1e-3   # loss, and gradients x max(1, max|g_cpu|), card vs CPU
+TRAIN_STEP_TOL = 1e-5    # one step's new parameters, m and v, card vs CPU
+TRAIN_DRILL = dict(arch="qwen3-1.7b", scale="100m", batch=8, seq=256, steps=12,
+                   ckpt_every=4, simulate_failure=7, lr="3e-4")
+TRAIN_FULL = dict(batch=1, seq=4096, warmup_steps=1, timed_steps=3)
+
+
+def train_config():
+    """The trained model at full width (a CPU rehearsal swaps this out)."""
+    return get_config(SERVE_ARCH)
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+          f"shape {tuple(a.shape)} vs {tuple(b.shape)}, or not finite")
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def phase_train_small() -> None:
+    """Each of the ten architectures at `.reduced()` (float32, TF32 off), B =
+    2, S = 32, the same weights on the card and on the CPU (drawn on the CPU,
+    carried by `params_from_numpy`): `train_loss` within 1e-3 and every
+    gradient leaf within 1e-3 x max(1, max|g_cpu|) (`steps.loss_and_grads`,
+    autograd through remat); one `make_train_step` step's new parameters,
+    m and v within 1e-5 (`launch/train.py`'s optimizer settings)."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    for arch in all_arch_names():
+        cfg = get_config(arch).reduced()
+        # What `launch/train.py` builds at its default flags (--lr 3e-4, --steps
+        # 20: 5 warm-up steps).  Adam's first update g / (|g| + eps) turns a
+        # difference in a gradient near eps into one 1/eps times larger, so a
+        # bound on the step is a bound for one learning rate: train.py's.
+        opt_cfg = train_mod.opt_config(types.SimpleNamespace(lr=3e-4, steps=20, arch=arch))
+        cpu = lm.init_params(cfg, torch.Generator().manual_seed(SEED + 70), device="cpu")
+        params = params_from_numpy(tree_map(lambda t: t.numpy(), cpu), DEV)
+        batch = make_batch(3, cfg, 2, 32, device=DEV)
+        cbatch = to_cpu(batch)
+        loss, grads = steps.loss_and_grads(params, batch, cfg)
+        closs, cgrads = steps.loss_and_grads(cpu, cbatch, cfg)
+        # "grad": the largest max |g - g_cpu| / max(1, max |g_cpu|) of a leaf
+        e = {"loss": max_err(loss, closs), "grad": 0.0}
+        check(e["loss"] <= TRAIN_SMALL_TOL, f"{arch} train_loss: {float(loss)} vs {float(closs)}")
+        for (path, g), cg in zip(flatten_with_paths(grads), tree_leaves(cgrads)):
+            err = max_err(g, cg) / max(1.0, float(cg.abs().max()))
+            check(err <= TRAIN_SMALL_TOL, f"{arch} gradient {path}: {err} over {TRAIN_SMALL_TOL}")
+            e["grad"] = max(e["grad"], err)
+        step = steps.make_train_step(cfg, opt_cfg)
+        p1, s1, m1 = step(params, adamw.init(params), batch)
+        cp1, cs1, _ = step(cpu, adamw.init(cpu), cbatch)
+        for what, a, b in (("params", p1, cp1), ("m", s1["m"], cs1["m"]),
+                           ("v", s1["v"], cs1["v"])):
+            e[what] = max(check_close(x, y, TRAIN_STEP_TOL, f"{arch} step {what}")
+                          for x, y in zip(tree_leaves(a), tree_leaves(b)))
+        check(int(s1["step"]) == 1 and float(m1["grad_norm"]) > 0, f"{arch}: step metrics")
+        errs[arch] = e
+    say("train_small", archs=len(errs), batch=2, seq=32, loss_and_grad_tol=TRAIN_SMALL_TOL,
+        step_tol=TRAIN_STEP_TOL, max_abs_err=errs, seconds=time.perf_counter() - t_phase)
+
+
+def drill_argv(ckpt_dir: Path, fail: int | None) -> list[str]:
+    d = TRAIN_DRILL
+    argv = ["--arch", d["arch"], "--scale", d["scale"], "--steps", str(d["steps"]),
+            "--batch", str(d["batch"]), "--seq", str(d["seq"]), "--lr", d["lr"],
+            "--ckpt-every", str(d["ckpt_every"]), "--log-every", str(d["steps"]),
+            "--ckpt-dir", str(ckpt_dir), "--seed", "0", "--device", str(DEV)]
+    return argv + (["--simulate-failure", str(fail)] if fail is not None else [])
+
+
+def phase_train_drill() -> None:
+    """`python -m repro_torch.launch.train` (its `main`) on the card at
+    qwen3-1.7b's `--scale 100m` (d 512, 8 layers, vocab 32,000), B = 8 x
+    256, 12 steps, a checkpoint every 4: once uninterrupted and once with
+    `--simulate-failure 7` (restored from step 4).  The loss falls (last 5
+    below 0.98 x the first 5); the recovered run ends at the uninterrupted
+    run's loss within rtol 1e-4; every save launches each write kernel once
+    per dispatch of its engine, every restore `decode_wave` (host planner,
+    the default).  Counts are zeroed just before each save and restore and
+    read just after (the checkpoint calls of `launch.train` are wrapped)."""
+    t_phase = time.perf_counter()
+    root = scratch_dir("train_drill")
+    calls = {"save": [], "restore": []}
+
+    def state_bytes(tree) -> int:
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+    def save(ckpt_dir, step, tree, *, engine, **kw):
+        path, dt, launches, (d,) = counted(
+            lambda: ckpt.save(ckpt_dir, step, tree, engine=engine, **kw), engine)
+        got = pick(launches, WRITE_KERNELS)
+        check(d > 0 and all(v == d for v in got.values()),
+              f"train_drill save {step}: launches {got} for {d} dispatches")
+        n = state_bytes(tree)
+        calls["save"].append(dict(step=step, bytes=n, seconds=dt, GB_per_s=n / dt / 1e9,
+                                  dispatches=d, launches=got))
+        return path
+
+    def restore(ckpt_dir, step, like, *, decode_engine, **kw):
+        out, dt, launches, (d,) = counted(
+            lambda: ckpt.restore(ckpt_dir, step, like, decode_engine=decode_engine, **kw),
+            decode_engine)
+        got = pick(launches, READ_KERNELS)
+        check(d > 0 and got == dict(decode_wave=d, plan_speculative=0, crc32=0),
+              f"train_drill restore {step}: launches {got} for {d} dispatches")
+        n = state_bytes(out[0])
+        calls["restore"].append(dict(step=step, bytes=n, seconds=dt, GB_per_s=n / dt / 1e9,
+                                     dispatches=d, launches=got))
+        return out
+
+    runs = {}
+    train_mod.ckpt = types.SimpleNamespace(save=save, restore=restore,
+                                           latest_step=ckpt.latest_step)
+    try:
+        for name, fail in (("uninterrupted", None), ("recovered", TRAIN_DRILL["simulate_failure"])):
+            n_saves, n_restores = len(calls["save"]), len(calls["restore"])
+            out, dt = synced(lambda: train_mod.main(drill_argv(root / name, fail)))
+            runs[name] = dict(losses=out["losses"], final_loss=out["final_loss"], seconds=dt,
+                              saves=len(calls["save"]) - n_saves,
+                              restores=len(calls["restore"]) - n_restores)
+    finally:
+        train_mod.ckpt = ckpt
+    first = runs["uninterrupted"]["losses"]
+    check(len(first) == TRAIN_DRILL["steps"] and all(np.isfinite(first)),
+          f"train_drill losses {first}")
+    check(np.mean(first[-5:]) < 0.98 * np.mean(first[:5]),
+          f"train_drill: loss did not fall ({np.mean(first[:5])} -> {np.mean(first[-5:])})")
+    a, b = runs["uninterrupted"]["final_loss"], runs["recovered"]["final_loss"]
+    check(abs(a - b) <= 1e-4 * abs(a), f"train_drill: recovered final loss {b} != {a}")
+    check(runs["recovered"]["restores"] == 1 and calls["restore"][0]["step"] == 4,
+          f"train_drill: restores {calls['restore']}")
+    shutil.rmtree(root)
+    saves, res = calls["save"], calls["restore"]
+    cfg = train_mod.scale_config(get_config(TRAIN_DRILL["arch"]), TRAIN_DRILL["scale"])
+    say("train_drill", **TRAIN_DRILL, layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, params=sum(
+            t.numel() for t in tree_leaves(lm.init_params(cfg, device="meta"))),
+        state_bytes=saves[0]["bytes"], runs=runs,
+        loss_first5=float(np.mean(first[:5])), loss_last5=float(np.mean(first[-5:])),
+        recovered_equal=True, saves=saves, restores=res,
+        save_GB_per_s=[c["GB_per_s"] for c in saves],
+        restore_GB_per_s=[c["GB_per_s"] for c in res],
+        launches_per_save={k: saves[0]["launches"][k] for k in WRITE_KERNELS},
+        launches_per_restore=res[0]["launches"], seconds=time.perf_counter() - t_phase)
+
+
+def phase_train_full(card: str) -> None:
+    """qwen3-1.7b at the published width and depth (1,720,574,976 float32
+    parameters from a seeded generator, bfloat16 compute, remat on as the
+    config has) trained by `steps.make_train_step` with the `AdamWConfig`
+    that `launch/train.py` builds: one sequence of `train_4k`'s shape per
+    step (B = 1, S = 4096; the global batch of 256 cut to the one sequence
+    a card takes), tokens from `ShardedTokenPipeline`, the same batch every
+    step; 1 warm-up step and 3 timed ones (host clock, synchronized), then
+    a split one and one under torch.profiler.  MFU = `roofline.model_flops` / (step seconds
+    x 989e12).  One more step is timed in halves (`loss_and_grads`, then
+    `adamw.update`).  No checkpoint at this width."""
+    t_phase = time.perf_counter()
+    f = TRAIN_FULL
+    cfg = train_config()
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=f["batch"])
+    root = scratch_dir("train_full")
+    pipe = ShardedTokenPipeline(str(root / "data"), cfg.vocab_size, seed=0,
+                                shard_tokens=2 * f["seq"], engine=LZ4Engine(device=DEV),
+                                decode_engine=LZ4DecodeEngine(device=DEV))
+    batch = {"tokens": torch.from_numpy(pipe.batch(0, f["batch"], f["seq"])).to(DEV)}
+    n_steps = f["warmup_steps"] + f["timed_steps"]
+    # the run's steps: the timed ones, their warm-up, a split one, a profiled one
+    opt_cfg = train_mod.opt_config(types.SimpleNamespace(lr=3e-4, steps=n_steps + 2,
+                                                         arch=SERVE_ARCH))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=DEV).manual_seed(SEED + 80)
+    params, init_s = synced(lambda: lm.init_params(cfg, g, device=DEV))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt_state = adamw.init(params)
+    step = steps.make_train_step(cfg, opt_cfg)
+    state = [params, opt_state]
+    del params, opt_state
+    losses, norms, step_s = [], [], []
+
+    def one_step():
+        state[0], state[1], m = step(state[0], state[1], batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+
+    for i in range(n_steps):
+        _, dt = synced(one_step)
+        if i >= f["warmup_steps"]:
+            step_s.append(dt)
+    peak = torch.cuda.max_memory_allocated()
+    # one more step in its two halves: forward + backward, then the update
+    (loss, grads), grad_s = synced(lambda: steps.loss_and_grads(state[0], batch, cfg))
+    with torch.no_grad():
+        (state[0], state[1], m), update_s = synced(
+            lambda: adamw.update(grads, state[1], state[0], opt_cfg))
+    del grads
+    losses.append(float(loss))
+    norms.append(float(m["grad_norm"]))
+    device = profile_device(one_step)
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"train_full: losses {losses}, grad norms {norms}")
+    check(losses[3] < losses[0], f"train_full: loss after 3 steps {losses[3]} !< {losses[0]}")
+    del state
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    mean_s = float(np.mean(step_s))
+    flops = roofline.model_flops(cfg, shape, 1)
+    say("train_full", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.hd, d_ff=cfg.d_ff,
+        vocab=cfg.vocab_size, params=n_params, param_dtype=cfg.param_dtype,
+        compute_dtype=cfg.compute_dtype, remat=cfg.remat, remat_policy=cfg.remat_policy,
+        batch=f["batch"], seq=f["seq"],
+        reduced={"global_batch": f"{SHAPES['train_4k'].global_batch} -> {f['batch']} "
+                                 "(the one sequence a single card takes per step)"},
+        opt=dataclasses.asdict(opt_cfg), init_seconds=init_s, losses=losses, grad_norms=norms,
+        ms_per_step=[s * 1e3 for s in step_s], mean_ms_per_step=mean_s * 1e3,
+        split_step_ms=dict(loss_and_grads=grad_s * 1e3, adamw_update=update_s * 1e3),
+        tokens_per_s=f["batch"] * f["seq"] / mean_s, model_flops=flops,
+        mfu=flops / (mean_s * roofline.PEAK_FLOPS), mfu_peak_flops=roofline.PEAK_FLOPS,
+        card=card, max_memory_allocated=peak, device=device,
+        seconds=time.perf_counter() - t_phase)
+
+
 def main() -> None:
     # Bring-up aid: `--stop-after build|kernels|small` ends the run early
     # (exit 0, no result lines).  With no arguments the whole run.
@@ -2636,6 +2878,7 @@ def main() -> None:
     phase_read_small()
     phase_resilience_small()
     phase_models_small()
+    phase_train_small()
     if stop_after == "small":
         return
     t0 = time.perf_counter()
@@ -2654,6 +2897,8 @@ def main() -> None:
     phase_fabric_small()              # the sharded fabric: host and mesh paths
     phase_fabric_full(data, frame, path_full)
     phase_serve_offload(*phase_serve_full())   # the serving path at full width
+    phase_train_drill()               # the training loop, its checkpoints and recovery
+    phase_train_full(card)            # a training step at full width
     staged = phase_path_staged_full(data, frame)              # the staged path
     launches.update({k: staged[k] for k in ("fibhash", "match_extend")})
     phase_breakdown(data[: 64 << 20])

@@ -45,8 +45,8 @@ Properties:
 ``restore(shardings=...)`` places each leaf by a
 `repro_torch.distributed.sharding.NamedSharding` on the one device its mesh
 holds; a leaf split or replicated across distinct devices is refused (one
-torch tensor cannot hold it; the form for sharded parameters comes with
-training, ROADMAP A9b).
+torch tensor cannot hold it; the form for sharded parameters is ROADMAP
+A9c).
 """
 from __future__ import annotations
 
@@ -291,8 +291,8 @@ def _sharding_device(sh, path: str):
         raise NotImplementedError(
             f"restore(shardings=...): the sharding of {path} spreads the leaf "
             f"over {len(devs)} distinct devices, which one torch tensor "
-            "cannot hold; sharded parameters come with training (ROADMAP "
-            "queue A, item A9b)")
+            "cannot hold; the form for sharded parameters is not ported yet "
+            "(ROADMAP queue A, item A9c)")
     return devs.pop()
 
 

@@ -8,9 +8,11 @@ stacked on a leading ``repeats`` axis, and the port's models loop over that
 axis (the reference runs one `lax.scan` over it); heterogeneous stacks
 (gemma2 local/global alternation, recurrentgemma 2:1 recurrent:attention,
 xlstm mLSTM/sLSTM) are expressed as multi-layer units or multiple segments.
-Fields that steer only the reference's compiler (``remat``,
-``unroll_layers``, ``seq_shard``, ``remat_policy``, ``decode_cache_axes``)
-are kept so that configs compare field for field; they change no value.
+Fields that steer only the reference's compiler (``unroll_layers``,
+``seq_shard``, ``decode_cache_axes``) are kept so that configs compare field
+for field; they change no value.  ``remat`` and ``remat_policy`` choose what
+training keeps for its backward pass (`torch.utils.checkpoint`), also
+without changing a value.
 """
 from __future__ import annotations
 

@@ -21,7 +21,7 @@ process-wide current mesh.  `PartitionSpec` and `NamedSharding` exist for
 `param_shardings` give the reference's spec for every leaf of a parameter
 tree (from its path and shape), and `constrain` / `constrain_batch` are the
 identity (see there).  Not ported yet: a leaf split across distinct devices
-(`checkpoint.restore(shardings=)` refuses it; ROADMAP A9b).
+(`checkpoint.restore(shardings=)` refuses it; ROADMAP A9c).
 """
 from __future__ import annotations
 
@@ -169,12 +169,20 @@ def local_batch(global_batch: int, mesh: Mesh | None = None) -> int:
     return global_batch // n
 
 
+def _canonical_part(part):
+    """One dimension's axes as `jax.sharding.PartitionSpec` stores them: a
+    one-axis tuple or list is that axis, an empty one is None."""
+    if isinstance(part, (tuple, list)):
+        return None if not part else part[0] if len(part) == 1 else tuple(part)
+    return part
+
+
 class PartitionSpec(tuple):
     """Per-dimension mesh axes of an array (None: not split), as
-    `jax.sharding.PartitionSpec`."""
+    `jax.sharding.PartitionSpec`, canonicalized as it is."""
 
     def __new__(cls, *parts):
-        return super().__new__(cls, parts)
+        return super().__new__(cls, (_canonical_part(p) for p in parts))
 
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"

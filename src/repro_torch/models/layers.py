@@ -116,7 +116,7 @@ def softcap(x, cap: float | None):
 
 def cross_entropy_chunked(logits_fn, x, labels, mask, vocab: int, chunk: int = 4096):
     """Mean CE without materializing (B,S,V): a loop over flattened token
-    chunks (forward only here).
+    chunks (the reference's `lax.scan`); differentiable.
 
     logits_fn: (T, d) -> (T, V).  mask: (B,S) float weights.
     """

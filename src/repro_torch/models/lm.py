@@ -1,6 +1,5 @@
-"""Model assembly: layer programs -> init / forward / prefill / decode — the
-port of the JAX package's `models/lm.py` (all but `train_loss`, which comes
-with training).
+"""Model assembly: layer programs -> init / train loss / forward / prefill /
+decode — the port of the JAX package's `models/lm.py`.
 
 Parameters are the reference's tree: every leaf under
 ``segments/<i>/layers/<j>`` is STACKED on a leading ``repeats`` axis (the
@@ -15,13 +14,19 @@ decode cache is stacked the same way.  Families:
   hybrid/ssm    : recurrent mixers (RG-LRU, mLSTM, sLSTM) via recurrent.py
 
 Every function computes on the device its parameters are on; there is no
-``torch.compile`` and no CUDA graph.
+``torch.compile`` and no CUDA graph.  `train_loss` is differentiable (the
+gradient is autograd's); where ``cfg.remat`` is set its blocks run under
+`torch.utils.checkpoint`, the reference's `jax.checkpoint`, which changes
+what is kept for the backward pass and no value.
 """
 from __future__ import annotations
 
-import torch
+import functools
 
-from repro_torch._tree import tree_map
+import torch
+from torch.utils import checkpoint as _ckpt
+
+from repro_torch._tree import flatten, unflatten
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
 from repro_torch.distributed.sharding import constrain_batch
 
@@ -32,13 +37,15 @@ from .layers import (
     _init,
     apply_mlp,
     apply_norm,
+    cross_entropy_chunked,
     mlp_init,
     norm_init,
     sinusoidal_positions,
     softcap,
 )
 
-__all__ = ["init_params", "forward_logits", "init_cache", "prefill", "decode_step"]
+__all__ = ["init_params", "train_loss", "forward_logits", "init_cache", "prefill",
+           "decode_step"]
 
 
 def _dtype(name) -> torch.dtype:
@@ -190,25 +197,57 @@ def _apply_block(p, x, spec: LayerSpec, cfg: ModelConfig, memory, positions):
     return constrain_batch(x, cfg.seq_shard, cfg.pure_dp), aux, cache
 
 
-def _layer(stacked, r: int):
-    """Repeat ``r`` of a stacked tree (views, no copy)."""
-    return tree_map(lambda t: t[r], stacked)
+def _layers(stacked, repeats: int) -> list:
+    """Every repeat of a stacked tree (views, no copy).  One `unbind` per
+    leaf: its gradient is one stack of the repeats' gradients, where
+    indexing each repeat would add ``repeats`` full-size gradients."""
+    leaves, treedef = flatten(stacked)
+    cols = [t.unbind(0) for t in leaves]
+    return [unflatten(treedef, [c[r] for c in cols]) for r in range(repeats)]
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the outputs of 2-D matrix products (the
+    weight products, `jax.checkpoint_policies.dots_with_no_batch_dims_saveable`)
+    and recompute the rest, batched attention products included."""
+    if op == torch.ops.aten.mm.default:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_block(p, x, spec, cfg, memory, positions):
+    """`_apply_block` under `torch.utils.checkpoint`, returning only
+    ``(x, aux)``: the block's (k, v) cache entries are not kept alive."""
+    def block(p, x, memory, positions):
+        x, aux, _ = _apply_block(p, x, spec, cfg, memory, positions)
+        return x, aux
+
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_weight_products)
+    return _ckpt.checkpoint(block, p, x, memory, positions, use_reentrant=False, **kw)
 
 
 def _run_segments(params_segs, segments, x, cfg, memory, positions, collect_cache=False):
     """Run all segments, repeat by repeat; optionally collect prefill caches
-    (leaves stacked on repeats, as the reference's scan outputs)."""
+    (leaves stacked on repeats, as the reference's scan outputs).  With
+    ``cfg.remat`` and autograd recording (training), each block runs under
+    `_remat_block`."""
+    remat = cfg.remat and not collect_cache and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for seg_params, seg in zip(params_segs, segments):
         ys = []
-        for r in range(seg.repeats):
-            layer_p = _layer(seg_params["layers"], r)
+        for layer_p in _layers(seg_params["layers"], seg.repeats):
             entries = {}
             for j, spec in enumerate(seg.unit):
-                x, a, cache = _apply_block(layer_p[str(j)], x, spec, cfg, memory, positions)
+                if remat:
+                    x, a = _remat_block(layer_p[str(j)], x, spec, cfg, memory, positions)
+                else:
+                    x, a, entries[str(j)] = _apply_block(layer_p[str(j)], x, spec, cfg,
+                                                         memory, positions)
                 aux_total = aux_total + a
-                entries[str(j)] = cache
             if collect_cache:
                 ys.append(entries)
         caches.append(_stack(ys) if collect_cache else None)
@@ -282,8 +321,20 @@ def _run_encoder(params, memory, cfg):
 
 
 # ---------------------------------------------------------------------------
-# Forward
+# Train / forward
 # ---------------------------------------------------------------------------
+
+def train_loss(params, batch, cfg: ModelConfig):
+    """Mean next-token cross entropy plus 0.01 x the MoE auxiliary losses,
+    as a 0-d float32 tensor that autograd differentiates."""
+    x, labels, mask, memory = _assemble_inputs(params, batch, cfg)
+    memory, enc_aux = _run_encoder(params, memory, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, aux, _ = _run_segments(params["segments"], cfg.segments, x, cfg, memory, positions)
+    x = apply_norm(params["final_norm"], x, cfg.norm_eps, cfg.layer_norm)
+    ce = cross_entropy_chunked(_logits_fn(params, cfg), x, labels, mask, cfg.vocab_size)
+    return ce + 0.01 * (aux + enc_aux)
+
 
 @torch.no_grad()
 def forward_logits(params, batch, cfg: ModelConfig):
@@ -418,9 +469,8 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
     new_layers = []
     for si, seg in enumerate(cfg.segments):
         ys = []
-        for r in range(seg.repeats):
-            layer_p = _layer(params["segments"][si]["layers"], r)
-            layer_c = _layer(cache["layers"][si], r)
+        for layer_p, layer_c in zip(_layers(params["segments"][si]["layers"], seg.repeats),
+                                    _layers(cache["layers"][si], seg.repeats)):
             new_c = {}
             for j, spec in enumerate(seg.unit):
                 x, new_c[str(j)] = _decode_layer(layer_p[str(j)], layer_c[str(j)], x,
