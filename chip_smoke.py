@@ -40,7 +40,12 @@ m and v within 1e-5), `train_drill` (`launch/train.py` at qwen3-1.7b's
 failing at step 7: the loss falls, the recovered run ends at the same loss,
 the saves launch the write kernels and the restore `decode_wave`) and
 `train_full` (qwen3-1.7b at full width, B = 1 x 4096: ms per step,
-tokens/s, MFU against 989 TFLOP/s, peak memory, idle share).
+tokens/s, MFU against 989 TFLOP/s, peak memory, idle share).  Then
+`dryrun` (the port's dry run over `meta` tensors on the host: qwen3-1.7b's
+train_4k cell and the LZ4 cell on the 16x16 meta mesh, and the state bytes
+it counts at `train_full`'s shape held to what `train_full` allocated) and
+`compress_bytes` (the deprecated wrapper on 8 MiB: blocks equal to the
+engine's on the card and to the CPU's).
 Checkpoints and shards are written under `build/smoke_scratch/` and
 removed.
 Imports `repro_torch` only — never the JAX reference.  One JSON line per
@@ -48,7 +53,8 @@ phase; any failed check raises, so the process exits non-zero at once.
 Without a CUDA device it exits non-zero and prints no result.
 
 The second to last line is ``{"kernels": [...]}`` (per kernel: launches on
-the main path, error against the plain version, time, plain time, bound);
+the main path, error against the plain version, time, plain time, bound,
+and the launches of the `compress_bytes` check);
 the last line is ``{"ok": true, "device": {...}}``.  The 256 MiB write
 phases print each frame's SHA-256, so that runs of two checkouts show
 whether they write the same bytes.
@@ -65,6 +71,7 @@ import subprocess
 import sys
 import time
 import types
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -132,7 +139,7 @@ from repro_torch.resilience.inject import (  # noqa: E402
 from repro_torch.serving import engine as serving  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.configs.base import SHAPES, all_arch_names, get_config  # noqa: E402
-from repro_torch.launch import roofline, steps  # noqa: E402
+from repro_torch.launch import dryrun, roofline, steps  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.inputs import make_batch  # noqa: E402
 from repro_torch.models import lm, moe  # noqa: E402
@@ -2782,7 +2789,7 @@ def phase_train_drill() -> None:
         launches_per_restore=res[0]["launches"], seconds=time.perf_counter() - t_phase)
 
 
-def phase_train_full(card: str) -> None:
+def phase_train_full(card: str) -> dict:
     """qwen3-1.7b at the published width and depth (1,720,574,976 float32
     parameters from a seeded generator, bfloat16 compute, remat on as the
     config has) trained by `steps.make_train_step` with the `AdamWConfig`
@@ -2812,6 +2819,9 @@ def phase_train_full(card: str) -> None:
     params, init_s = synced(lambda: lm.init_params(cfg, g, device=DEV))
     n_params = sum(t.numel() for t in tree_leaves(params))
     opt_state = adamw.init(params)
+    # the bytes of the parameters, m and v that the card holds
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(
+        (params, opt_state["m"], opt_state["v"])))
     step = steps.make_train_step(cfg, opt_cfg)
     state = [params, opt_state]
     del params, opt_state
@@ -2856,8 +2866,92 @@ def phase_train_full(card: str) -> None:
         split_step_ms=dict(loss_and_grads=grad_s * 1e3, adamw_update=update_s * 1e3),
         tokens_per_s=f["batch"] * f["seq"] / mean_s, model_flops=flops,
         mfu=flops / (mean_s * roofline.PEAK_FLOPS), mfu_peak_flops=roofline.PEAK_FLOPS,
-        card=card, max_memory_allocated=peak, device=device,
+        card=card, max_memory_allocated=peak, device=device, state_bytes=state_bytes,
         seconds=time.perf_counter() - t_phase)
+    return dict(params=n_params, state_bytes=state_bytes, step_seconds=step_s,
+                model_flops=flops)
+
+
+def phase_dryrun(train_full: dict) -> None:
+    """The port's dry run (`launch/dryrun.py`), on the host over `meta`
+    tensors: `run_cell("qwen3-1.7b", "train_4k")` and `run_lz4_cell` on the
+    16x16 meta mesh (records printed; the LZ4 cell must reach the `fibhash`
+    and `match_extend` wrappers without a launch), then the dry run held to
+    the card once: qwen3-1.7b at `train_full`'s shape (B = 1 x 4096) on a
+    one-device meta mesh, whose ``param_bytes + opt_bytes`` must equal the
+    bytes of the parameters, m and v that `train_full` allocated, byte for
+    byte; its counted FLOPs are printed beside `train_full`'s measured
+    step seconds (a count, not a device time)."""
+    t_phase = time.perf_counter()
+    reset_launches(EVERY_KERNEL_MODULE)
+    cell = dryrun.run_cell(SERVE_ARCH, "train_4k", False, verbose=False)
+    lz4 = dryrun.run_lz4_cell(False, verbose=False)
+    say("dryrun_record", record=cell)
+    say("dryrun_record", record=lz4)
+    check(all(v == 0 for v in launch_counts(EVERY_KERNEL_MODULE).values()),
+          f"the dry run launched kernels: {launch_counts(EVERY_KERNEL_MODULE)}")
+    check(set(lz4["kernels"]) == {"fibhash", "match_extend"}
+          and all(k["calls"] == 1 for k in lz4["kernels"].values()),
+          f"the LZ4 cell's kernel calls: {lz4['kernels']}")
+    for tot in (cell["probe"]["total"], lz4["probe"]["total"]):
+        check(all(np.isfinite(v) and v >= 0 for v in tot.values()) and tot["bytes"] > 0,
+              f"dry-run totals {tot}")
+    check(cell["probe"]["total"]["flops"] > 0, "the train cell counted no FLOPs")
+    one = make_mesh((1, 1), ("data", "model"), devices=["meta"])
+    shape = dataclasses.replace(SHAPES["train_4k"], name="train_full",
+                                global_batch=TRAIN_FULL["batch"], seq_len=TRAIN_FULL["seq"])
+    full = dryrun.dry_run(train_config(), shape, one)
+    counted = full["param_bytes"] + full["opt_bytes"]
+    check(counted == train_full["state_bytes"],
+          f"dry run's params + m + v {counted} B != train_full's {train_full['state_bytes']} B")
+    check(cell["param_bytes"] + cell["opt_bytes"] == counted,
+          "the 16x16 cell's state bytes differ from the one-device cell's")
+    flops = full["probe"]["global"]["flops"]
+    check(flops >= train_full["model_flops"],
+          f"counted FLOPs {flops} below the useful {train_full['model_flops']}")
+    step_s = float(np.mean(train_full["step_seconds"]))
+    say("dryrun", cell_lower_seconds=cell["lower_s"], lz4_lower_seconds=lz4["lower_s"],
+        one_device=dict(shape=dataclasses.asdict(shape), param_bytes=full["param_bytes"],
+                        opt_bytes=full["opt_bytes"], memory=full["memory"],
+                        counted=full["probe"]["global"], lower_seconds=full["lower_s"]),
+        train_full=dict(params=train_full["params"], state_bytes=train_full["state_bytes"],
+                        mean_step_seconds=step_s, model_flops=train_full["model_flops"]),
+        state_bytes_equal=True,
+        counted_flops_per_measured_second=flops / step_s,
+        useful_over_counted=train_full["model_flops"] / flops,
+        seconds=time.perf_counter() - t_phase)
+
+
+def phase_compress_bytes() -> dict:
+    """The deprecated `compress_bytes` on the card: 8 MiB of the corpus (the
+    data of `path_small`); its blocks must equal `LZ4Engine(device="cuda").
+    compress_to_blocks` and `compress_bytes(device="cpu")` (the plain
+    versions), byte for byte, and decode back.  Returns its launches."""
+    t_phase = time.perf_counter()
+    data = seeded_data(8 << 20, SEED + 3)
+    reset_launches(EVERY_KERNEL_MODULE)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        blocks = compressor.compress_bytes(data)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = launch_counts(EVERY_KERNEL_MODULE)
+        cpu_blocks = compressor.compress_bytes(data, device="cpu")
+    check(any(issubclass(w.category, DeprecationWarning)
+              and "compress_bytes is deprecated" in str(w.message) for w in caught),
+          "compress_bytes did not warn")
+    engine_blocks = LZ4Engine(device=DEV).compress_to_blocks(data)
+    check(blocks == engine_blocks, "compress_bytes != LZ4Engine.compress_to_blocks on the card")
+    check(blocks == cpu_blocks, "compress_bytes on the card != on the CPU")
+    check(b"".join(decode_block(b) for b in blocks) == data, "compress_bytes does not round-trip")
+    for name in WRITE_KERNELS:
+        check(launches[name] > 0, f"compress_bytes launched no {name}")
+    say("compress_bytes", bytes_in=len(data), blocks=len(blocks),
+        bytes_out=sum(len(b) for b in blocks), card_seconds=card_s,
+        blocks_equal=["engine", "cpu"], launches=launches,
+        seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 def main() -> None:
@@ -2898,7 +2992,9 @@ def main() -> None:
     phase_fabric_full(data, frame, path_full)
     phase_serve_offload(*phase_serve_full())   # the serving path at full width
     phase_train_drill()               # the training loop, its checkpoints and recovery
-    phase_train_full(card)            # a training step at full width
+    train_full = phase_train_full(card)   # a training step at full width
+    phase_dryrun(train_full)          # the dry run over meta tensors, held to train_full
+    cb_launches = phase_compress_bytes()   # the deprecated list-of-blocks wrapper
     staged = phase_path_staged_full(data, frame)              # the staged path
     launches.update({k: staged[k] for k in ("fibhash", "match_extend")})
     phase_breakdown(data[: 64 << 20])
@@ -2929,6 +3025,7 @@ def main() -> None:
             "ms": m["ms"], "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
+            "compress_bytes_launches": cb_launches[name],
         })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -44,9 +44,9 @@ Properties:
 
 ``restore(shardings=...)`` places each leaf by a
 `repro_torch.distributed.sharding.NamedSharding` on the one device its mesh
-holds; a leaf split or replicated across distinct devices is refused (one
-torch tensor cannot hold it; the form for sharded parameters is ROADMAP
-A9c).
+holds; a leaf split or replicated across distinct devices is refused: one
+torch tensor cannot hold it, and the port has no type for such a leaf
+(ROADMAP A9d, restore onto distinct devices, an open item of its own).
 """
 from __future__ import annotations
 
@@ -291,8 +291,8 @@ def _sharding_device(sh, path: str):
         raise NotImplementedError(
             f"restore(shardings=...): the sharding of {path} spreads the leaf "
             f"over {len(devs)} distinct devices, which one torch tensor "
-            "cannot hold; the form for sharded parameters is not ported yet "
-            "(ROADMAP queue A, item A9c)")
+            "cannot hold; the port has no type for a leaf split over distinct "
+            "devices (ROADMAP queue A, item A9d: restore onto distinct devices)")
     return devs.pop()
 
 
@@ -331,7 +331,8 @@ def restore(ckpt_dir: str, step: int, like, shardings=None,
     `shardings`: None, or a tree of ``like``'s structure holding
     `NamedSharding` (the leaf goes to the one device its mesh holds, e.g.
     any spec on a `single_device_mesh`) or None (the ``like`` placement); a
-    sharding over distinct devices raises NotImplementedError.
+    sharding over distinct devices raises NotImplementedError (the port has
+    no type for a leaf split over devices; ROADMAP A9d).
     `decode_engine`: optional `LZ4DecodeEngine` override (default:
     `default_decode_engine()`, the device executor on the card).
     `on_error`: ``"raise"`` (default) fails the whole restore on the first

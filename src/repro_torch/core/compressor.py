@@ -390,3 +390,32 @@ def records_to_plan(rec: BlockRecords, n: int) -> list[Sequence]:
         anchor = int(pos[w]) + int(length[w])
     plan.append(Sequence(anchor, n - anchor))
     return plan
+
+
+def compress_bytes(
+    data: bytes,
+    hash_bits: int = DEFAULT_HASH_BITS,
+    max_match: int = DEFAULT_MAX_MATCH,
+    use_pallas: bool = False,
+    scan_impl: str = "sequential",
+    device=None,
+) -> list[bytes]:
+    """Deprecated: use :class:`repro_torch.core.engine.LZ4Engine`.
+
+    Thin compatibility wrapper over the batched engine; still returns the
+    historical list-of-raw-LZ4-blocks shape (no frame, no passthrough).
+    ``use_pallas`` is accepted for the reference's signature and has no
+    effect (the port has no Pallas).  ``device`` is the engine's: the card
+    by default, ``"cpu"`` for the plain versions.
+    """
+    import warnings
+
+    from .engine import LZ4Engine
+
+    warnings.warn(
+        "compress_bytes is deprecated; use LZ4Engine.compress (framed) or "
+        "LZ4Engine.compress_to_blocks", DeprecationWarning, stacklevel=2,
+    )
+    eng = LZ4Engine(hash_bits=hash_bits, max_match=max_match, scan_impl=scan_impl,
+                    device=device)
+    return eng.compress_to_blocks(data)

@@ -20,13 +20,17 @@ process-wide current mesh.  `PartitionSpec` and `NamedSharding` exist for
 `checkpoint.restore(shardings=)` and the parameter rules: `param_specs` /
 `param_shardings` give the reference's spec for every leaf of a parameter
 tree (from its path and shape), and `constrain` / `constrain_batch` are the
-identity (see there).  Not ported yet: a leaf split across distinct devices
-(`checkpoint.restore(shardings=)` refuses it; ROADMAP A9c).
+identity (see there).  `NamedSharding.shard_shape` gives a leaf's piece on
+each device, which is what the dry run (`launch/dryrun.py`) counts over a
+mesh of repeated ``meta`` devices.  A leaf split across distinct devices has
+no type in the port: `checkpoint.restore(shardings=)` refuses it (ROADMAP
+A9d, an open item of its own).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -42,7 +46,9 @@ _STATE: dict[str, Any] = {"mesh": None}
 
 def _normalize(device) -> torch.device:
     """``cuda`` -> ``cuda:<current index>``, so that device comparisons and
-    per-device caches agree; CUDA devices must exist."""
+    per-device caches agree; CUDA devices must exist.  ``meta`` (shapes
+    only, no storage) is the dry run's device: a mesh of it stands for the
+    reference's forced host devices."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -54,8 +60,8 @@ def _normalize(device) -> torch.device:
             raise RuntimeError(f"mesh device cuda:{index} does not exist "
                                f"({torch.cuda.device_count()} visible)")
         return torch.device("cuda", index)
-    if dev.type != "cpu":
-        raise ValueError(f"mesh devices must be CUDA devices or the CPU, "
+    if dev.type not in ("cpu", "meta"):
+        raise ValueError(f"mesh devices must be CUDA devices, the CPU or meta, "
                          f"got {device!r}")
     return dev
 
@@ -197,6 +203,25 @@ class NamedSharding:
 
     mesh: Mesh
     spec: PartitionSpec
+
+    def shard_shape(self, global_shape) -> tuple[int, ...]:
+        """The shape of each device's piece of an array of ``global_shape``,
+        as `jax.sharding.NamedSharding.shard_shape`: every split dimension
+        divided by the product of its mesh axes, which must divide it."""
+        shape = list(global_shape)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec} has more dimensions than "
+                             f"shape {tuple(global_shape)}")
+        for i, part in enumerate(self.spec):
+            if part is None:
+                continue
+            n = math.prod(self.mesh.shape[a]
+                          for a in (part if isinstance(part, tuple) else (part,)))
+            if shape[i] % n:
+                raise ValueError(f"dimension {i} of shape {tuple(global_shape)} "
+                                 f"does not divide over {n} devices ({part!r})")
+            shape[i] //= n
+        return tuple(shape)
 
 
 def sharding(spec: PartitionSpec, mesh: Mesh | None = None) -> NamedSharding:

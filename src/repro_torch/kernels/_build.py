@@ -45,6 +45,18 @@ class KernelRefusal(ValueError):
     refusal through to the caller instead."""
 
 
+# The dry run's counters (`launch/dryrun.py` pushes one while it traces): a
+# wrapper given ``meta`` tensors launches nothing and adds here the bytes
+# its kernel would move.
+meta_counters: list = []
+
+
+def count_meta_call(kernel: str, nbytes: int) -> None:
+    """One call of ``kernel`` on ``meta`` tensors, moving ``nbytes``."""
+    for counter in meta_counters:
+        counter.kernel(kernel, nbytes)
+
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: float | None = None   # wall time of the last real build

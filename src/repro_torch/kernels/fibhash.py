@@ -7,7 +7,9 @@ plain PyTorch version is `ref.fibhash_ref` over the row's four shifted byte
 views, wrapped here as `fibhash_plain`.
 
 The wrapper launches the kernel for CUDA tensors (or raises) and runs the
-plain version only for CPU tensors.  `launches` counts kernel launches.
+plain version only for CPU tensors.  `launches` counts kernel launches.  On
+``meta`` tensors (the dry run) it returns empty outputs and reports the
+kernel's bytes to `_build.count_meta_call`.
 """
 from __future__ import annotations
 
@@ -73,6 +75,11 @@ def fibhash(blocks_u8: torch.Tensor, positions: int, hash_bits: int = 8):
     dev = blocks_u8.device
     if dev.type == "cpu":
         return fibhash_plain(blocks_u8, P, hash_bits)
+    if dev.type == "meta":
+        # each input byte read once (P + 3 of each row), each output written once
+        _build.count_meta_call("fibhash", M * (P + 3) + 2 * M * P * 4)
+        return (torch.empty((M, P), dtype=torch.int32, device=dev),
+                torch.empty((M, P), dtype=torch.int32, device=dev))
     if dev.type != "cuda":
         raise RuntimeError(f"unsupported device {dev}")
 

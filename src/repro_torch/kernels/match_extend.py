@@ -7,7 +7,9 @@ what bounds it on the card are described at the top of
 re-exported here as `match_extend_plain`.
 
 The wrapper launches the kernel for CUDA tensors (or raises) and runs the
-plain version only for CPU tensors.  `launches` counts kernel launches.
+plain version only for CPU tensors.  `launches` counts kernel launches.  On
+``meta`` tensors (the dry run) it returns an empty output and reports the
+kernel's bytes to `_build.count_meta_call`.
 """
 from __future__ import annotations
 
@@ -82,6 +84,12 @@ def match_extend(blocks_u8: torch.Tensor, cand: torch.Tensor,
     if dev.type == "cpu":
         return match_extend_plain(blocks_u8, cand, valid.to(torch.bool), ns,
                                   max_match)
+    if dev.type == "meta":
+        # each input read once and the output written once: without data,
+        # every byte the compares could need
+        _build.count_meta_call("match_extend", M * B + M * P * (4 + valid.element_size() + 4)
+                               + M * 4)
+        return torch.empty((M, P), dtype=torch.int32, device=dev)
     if dev.type != "cuda":
         raise RuntimeError(f"unsupported device {dev}")
 

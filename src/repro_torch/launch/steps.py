@@ -5,9 +5,10 @@ their inputs: the port of the JAX package's `launch/steps.py`.
 ``requires_grad`` views of the parameter leaves and applies `adamw.update`
 under `torch.no_grad()`; nothing given to a step is modified.  The spec
 functions build the reference's `PartitionSpec` trees on the port's `P` and
-`Mesh`.  The AOT dry run's struct functions (`with_shardings`,
-`train_state_structs`, `decode_state_structs`) are not ported yet
-(ROADMAP A9c).
+`Mesh`.  The dry run's struct functions (`with_shardings`,
+`train_state_structs`, `decode_state_structs`) give a step's arguments as
+`Struct`s: a ``meta`` tensor (shape and dtype, no storage; the reference's
+`jax.ShapeDtypeStruct`) with its `NamedSharding`.
 """
 from __future__ import annotations
 
@@ -18,13 +19,21 @@ import torch
 
 from repro_torch._tree import flatten, unflatten
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.distributed.sharding import P, batch_axes, get_mesh
+from repro_torch.distributed.sharding import (
+    NamedSharding,
+    P,
+    batch_axes,
+    get_mesh,
+    param_specs,
+)
+from repro_torch.launch.inputs import input_specs
 from repro_torch.models import lm
 from repro_torch.optim import adamw
 
 __all__ = ["loss_and_grads", "make_train_step", "make_prefill_step", "make_decode_step",
-           "batch_specs", "cache_specs", "sanitize_spec", "optimized_config",
-           "serving_config"]
+           "batch_specs", "cache_specs", "sanitize_spec", "Struct", "with_shardings",
+           "train_state_structs", "optimized_config", "serving_config",
+           "decode_state_structs"]
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +148,75 @@ def sanitize_spec(spec: P, shape: tuple, mesh) -> P:
             n *= mesh.shape[a]
         out.append(el if shape[i] % n == 0 else None)
     return P(*out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Struct:
+    """One argument of a step, as `jax.ShapeDtypeStruct` with a sharding:
+    ``value`` is a ``meta`` tensor (shape and dtype, no storage)."""
+
+    value: torch.Tensor
+    sharding: NamedSharding
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(self.value.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.value.dtype
+
+
+def with_shardings(shape_tree, spec_tree, mesh=None):
+    """A tree of `Struct`s: each tensor leaf of ``shape_tree`` (any device;
+    its shape and dtype are kept) with its spec from the matching leaf of
+    ``spec_tree``, sanitized for its shape, over ``mesh``."""
+    mesh = mesh or get_mesh()
+
+    def walk(x, s):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            if set(x) != set(s):
+                raise ValueError(f"spec keys {sorted(s)} do not match {sorted(x)}")
+            return {k: walk(x[k], s[k]) for k in x}
+        if isinstance(x, (list, tuple)):
+            if len(x) != len(s):
+                raise ValueError(f"{len(s)} specs for {len(x)} subtrees")
+            return type(x)(walk(a, b) for a, b in zip(x, s))
+        return Struct(torch.empty(x.shape, dtype=x.dtype, device="meta"),
+                      NamedSharding(mesh, sanitize_spec(s, tuple(x.shape), mesh)))
+
+    return walk(shape_tree, spec_tree)
+
+
+def train_state_structs(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
+    """`Struct` trees of the train step's (params, opt state, batch)."""
+    mesh = mesh or get_mesh()
+    params_s = lm.init_params(cfg, device="meta")
+    p_specs = param_specs(params_s, cfg.fsdp, mesh, cfg.pure_dp)
+    params_sh = with_shardings(params_s, p_specs, mesh)
+    opt_sh = with_shardings(adamw.init(params_s), {"m": p_specs, "v": p_specs, "step": P()},
+                            mesh)
+    raw_batch = {k: torch.empty(s, dtype=d, device="meta")
+                 for k, (s, d) in input_specs(cfg, shape).items()}
+    b_specs = {k: v for k, v in batch_specs(cfg, mesh).items() if k in raw_batch}
+    return params_sh, opt_sh, with_shardings(raw_batch, b_specs, mesh)
+
+
+def decode_state_structs(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
+    """`Struct` trees of a decode step's (params, cache, tokens).  Pass a
+    `serving_config` here (bfloat16 parameters, the serving FSDP rule)."""
+    mesh = mesh or get_mesh()
+    params_s = lm.init_params(cfg, device="meta")
+    params_sh = with_shardings(params_s, param_specs(params_s, cfg.fsdp, mesh), mesh)
+    B = shape.global_batch
+    cache_s = lm.init_cache(cfg, B, shape.seq_len, device="meta")
+    cache_sh = with_shardings(cache_s, cache_specs(cache_s, cfg, shape, mesh), mesh)
+    ba = batch_axes(mesh) if _decode_batchable(B, mesh) else ()
+    tokens_sh = Struct(torch.empty((B,), dtype=torch.int32, device="meta"),
+                       NamedSharding(mesh, P(ba)))
+    return params_sh, cache_sh, tokens_sh
 
 
 def _param_count(cfg: ModelConfig) -> int:

@@ -37,6 +37,14 @@ def top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def expert_counts(flat_e, n_experts: int):
+    """Rows routed to each expert: ``torch.bincount(flat_e,
+    minlength=n_experts)`` (exact int64 counts), in a form that also runs
+    on ``meta`` tensors, which `bincount` does not."""
+    return torch.zeros((n_experts,), dtype=torch.int64, device=flat_e.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+
+
 def _local_moe(x, wr, w1, w3, w2, cfg):
     """Expert compute over one data-parallel shard. x: (B_loc, S, d)."""
     B, S, d = x.shape
@@ -78,7 +86,7 @@ def _local_moe(x, wr, w1, w3, w2, cfg):
 
     # load-balancing aux loss (GShard): E * sum_e fraction_e * prob_e
     probs = torch.softmax(logits, dim=-1)
-    frac = torch.bincount(flat_e, minlength=E).float() / (T * k)
+    frac = expert_counts(flat_e, E).float() / (T * k)
     aux = E * torch.sum(frac * probs.mean(0))
     return y.reshape(B, S, d), aux
 

@@ -116,8 +116,10 @@ def test_mesh_shape_size_and_positions():
         make_mesh((2, 2), ("data",), devices=[CPU] * 4)
     with pytest.raises(ValueError, match="repeated axis"):
         make_mesh((1, 1), ("data", "data"), devices=[CPU])
-    with pytest.raises(ValueError, match="CUDA devices or the CPU"):
-        make_mesh((1,), ("data",), devices=["meta"])
+    with pytest.raises(ValueError, match="CUDA devices, the CPU or meta"):
+        make_mesh((1,), ("data",), devices=["mps"])
+    meta = make_mesh((2, 2), ("data", "model"), devices=["meta"] * 4)
+    assert meta.device_at((1, 1)) == torch.device("meta")
 
 
 def test_mesh_devices_default_to_the_cards():

@@ -15,7 +15,8 @@ import test_torch_util  # noqa: F401  (one torch thread per test worker)
 ROOT = Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = r"""
-import importlib, json, pkgutil, sys
+import importlib, json, os, pkgutil, sys
+xla_flags = os.environ.get("XLA_FLAGS")
 import repro_torch
 names = ["repro_torch"] + sorted(
     m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
@@ -25,6 +26,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
 print(json.dumps({"imported": names, "bad": bad,
+                  "xla_flags_kept": os.environ.get("XLA_FLAGS") == xla_flags,
                   "probe": repro_torch.probe()}))
 """
 
@@ -40,6 +42,7 @@ def _run(code: str) -> dict:
 def test_every_module_imports_without_jax_or_the_reference():
     res = _run(_IMPORT_ALL)
     assert res["bad"] == []
+    assert res["xla_flags_kept"]
     for mod in ("repro_torch.core.engine", "repro_torch.core.compressor",
                 "repro_torch.core.frame", "repro_torch.core.decoder",
                 "repro_torch.core.emitter", "repro_torch.core.corpus",
@@ -61,7 +64,10 @@ def test_every_module_imports_without_jax_or_the_reference():
                 "repro_torch.distributed.sharding",
                 "repro_torch.distributed.fabric",
                 "repro_torch.distributed.fault",
-                "repro_torch.distributed.pipeline"):
+                "repro_torch.distributed.pipeline",
+                "repro_torch.launch.steps", "repro_torch.launch.mesh",
+                "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+                "repro_torch.launch.hillclimb", "repro_torch.launch.report"):
         assert mod in res["imported"], mod
     probe = res["probe"]
     assert probe["torch"] == torch.__version__
