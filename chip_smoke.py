@@ -45,7 +45,13 @@ tokens/s, MFU against 989 TFLOP/s, peak memory, idle share).  Then
 train_4k cell and the LZ4 cell on the 16x16 meta mesh, and the state bytes
 it counts at `train_full`'s shape held to what `train_full` allocated) and
 `compress_bytes` (the deprecated wrapper on 8 MiB: blocks equal to the
-engine's on the card and to the CPU's).
+engine's on the card and to the CPU's).  Then `restore_distinct` (a 256
+MiB checkpoint restored with `shardings=` onto the distinct devices
+``cuda:0`` and the CPU under three specs: every leaf a `ShardedTensor`
+whose shards sit on their devices at their indices with the saved bytes,
+`full()` bit for bit) and `examples` (the four `examples/torch_*.py` on
+the card at their quick sizes, in parallel subprocesses: exit 0 and their
+"OK" lines).
 Checkpoints and shards are written under `build/smoke_scratch/` and
 removed.
 Imports `repro_torch` only — never the JAX reference.  One JSON line per
@@ -65,6 +71,7 @@ import binascii
 import dataclasses
 import hashlib
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -124,6 +131,7 @@ from repro_torch.distributed.pipeline import pipeline_apply  # noqa: E402
 from repro_torch.distributed.sharding import (  # noqa: E402
     NamedSharding,
     P,
+    ShardedTensor,
     make_mesh,
     single_device_mesh,
     use_mesh,
@@ -2954,6 +2962,139 @@ def phase_compress_bytes() -> dict:
     return launches
 
 
+EXAMPLES_TIMEOUT = 240   # seconds for the four examples together
+DISTINCT_DEVICES = ("cuda:0", "cpu")   # restore_distinct's mesh
+DISTINCT_WIDTH = 2048    # restore_distinct's state: 64 x DISTINCT_WIDTH^2 bytes
+DISTINCT_SPECS = {"rows": P("data", None), "cols": P(None, "data"), "replicated": P()}
+
+
+def distinct_state(data: bytes, w: int) -> dict:
+    """A state of 64 w^2 bytes (256 MiB at w = 2048) on the card for
+    `restore_distinct`: six float32 and four bfloat16 (w, w) leaves of
+    seeded normals (stored raw: noise to LZ4), a float32 (2w, 3w) and a
+    bfloat16 (2w, 2w) leaf holding the first 32 w^2 bytes of the corpus
+    data (coded blocks, so the restore launches the decode kernels), and a
+    0-d step.  Every dimension divides by 2."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 90)
+    state = {f"w{i}": torch.randn((w, w), generator=g, device=DEV) for i in range(6)}
+    state.update({f"h{i}": torch.randn((w, w), generator=g, device=DEV).to(torch.bfloat16)
+                  for i in range(4)})
+    corpus = torch.frombuffer(bytearray(data[: 32 * w * w]), dtype=torch.uint8).to(DEV)
+    state["c_f32"] = corpus[: 24 * w * w].view(torch.float32).reshape(2 * w, 3 * w)
+    state["c_bf16"] = corpus[24 * w * w:].view(torch.bfloat16).reshape(2 * w, 2 * w)
+    state["step"] = torch.tensor(SEED, dtype=torch.int32, device=DEV)
+    return state
+
+
+def halves(n: int, split: bool) -> list[slice]:
+    return [slice(0, n // 2), slice(n // 2, n)] if split else [slice(None)] * 2
+
+
+def phase_restore_distinct(data: bytes, card: str) -> None:
+    """`checkpoint.restore(shardings=)` onto two distinct devices: a 256 MiB
+    state saved by the card's engine, restored three times over the mesh
+    ``make_mesh((2,), ("data",), devices=["cuda:0", "cpu"])`` with every
+    leaf under P("data", None), P(None, "data") and P() (the 0-d step always
+    under P()), by `LZ4DecodeEngine(plan_on_device=True)`.  Each leaf must
+    come back as a `ShardedTensor` whose shard 0 is on the card and shard 1
+    on the CPU, each at the index the spec gives (halves of the split
+    dimension, the whole of every other), each holding exactly those bytes
+    of the saved leaf; `full("cuda")` must equal the leaf bit for bit.
+    Launches of the read kernels are counted per restore."""
+    t_phase = time.perf_counter()
+    root = scratch_dir("restore_distinct")
+    state = distinct_state(data, DISTINCT_WIDTH)
+    nbytes = sum(x.numel() * x.element_size() for x in tree_leaves(state))
+    enc, dec = default_engine(), LZ4DecodeEngine(device=DEV, plan_on_device=True)
+    _, save_s, launches, (d,) = counted(lambda: ckpt.save(str(root), 1, state, engine=enc),
+                                        enc)
+    save = dict(seconds=save_s, GB_per_s=nbytes / save_s / 1e9, dispatches=d,
+                launches=pick(launches, WRITE_KERNELS))
+    mesh = make_mesh((2,), ("data",), devices=list(DISTINCT_DEVICES))
+    devices = list(mesh.devices)
+    like = as_meta(state)
+    restores = {}
+    for name, spec in DISTINCT_SPECS.items():
+        sh = {k: NamedSharding(mesh, spec if v.dim() else P()) for k, v in state.items()}
+        (tree, step), dt, launches, (d,) = counted(
+            lambda: ckpt.restore(str(root), 1, like, shardings=sh, decode_engine=dec), dec)
+        got = pick(launches, READ_KERNELS)
+        check(step == 1 and set(tree) == set(state), f"restore_distinct {name}: tree")
+        check(d > 0 and got["plan_speculative"] == d and got["decode_wave"] > 0
+              and got["crc32"] == 0,
+              f"restore_distinct {name}: launches {got} for {d} dispatches")
+        for k, leaf in state.items():
+            t = tree[k]
+            check(isinstance(t, ShardedTensor) and t.shape == tuple(leaf.shape)
+                  and t.dtype == leaf.dtype, f"{name} {k}: not a ShardedTensor of the leaf")
+            cuts = ([halves(n, spec[i] is not None if i < len(spec) else False)
+                     for i, n in enumerate(leaf.shape)] if leaf.dim() else [])
+            for pos, s in enumerate(t.shards):
+                want = tuple(c[pos] for c in cuts)
+                check(s.device == devices[pos] and s.data.device.type == devices[pos].type
+                      and s.data.is_contiguous(), f"{name} {k}: shard {pos} on {s.device}")
+                check(s.index == want, f"{name} {k}: shard {pos} index {s.index} != {want}")
+                check(same_bits(s.data.to(DEV), leaf[want].contiguous()),
+                      f"{name} {k}: shard {pos} bytes differ from the saved leaf")
+            check(same_bits(t.full(DEV), leaf), f"{name} {k}: full() differs")
+        restores[name] = dict(seconds=dt, GB_per_s=nbytes / dt / 1e9, dispatches=d,
+                              launches=got)
+        del tree
+    shutil.rmtree(SCRATCH)
+    say("restore_distinct", card=card, state_bytes=nbytes, leaves=len(state),
+        mesh=[str(x) for x in devices], save=save, restores=restores,
+        shards_equal=True, full_equal=True, seconds=time.perf_counter() - t_phase)
+
+
+EXAMPLE_RUNS = {   # each example's arguments at its quick size, and its "OK" lines
+    "torch_quickstart": ((), {"frame round-trip OK": 1, "parallel decode OK": 1,
+                              "fetched 0 plaintext bytes to host": 1,
+                              "decoder verified": 1}),
+    "torch_compress_file": ((), {"round-trip OK": 14}),   # one per corpus file
+    "torch_serve_lm": ((), {"bit-exact restore: True": 1}),
+    "torch_train_lm": (("--quick",), {"[train] done; final loss": 1}),
+}
+
+
+def phase_examples(card: str) -> None:
+    """`examples/torch_*.py` on the card at their quick sizes, all four at
+    once in subprocesses with a time limit (the kernels in `build/` are
+    reused, not rebuilt): each must exit 0 and print its "OK" lines."""
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    train_dir = scratch_dir("examples_train")
+    procs = {}
+    for name, (args, _) in EXAMPLE_RUNS.items():
+        extra = ("--ckpt-dir", str(train_dir)) if name == "torch_train_lm" else ()
+        procs[name] = subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / f"{name}.py"), *args, *extra],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    runs, ended = {}, {}
+    try:
+        # Output is a few KB per example, well inside a pipe's buffer.
+        while len(ended) < len(procs) and time.perf_counter() - t_phase < EXAMPLES_TIMEOUT:
+            for name, proc in procs.items():
+                if name not in ended and proc.poll() is not None:
+                    ended[name] = time.perf_counter() - t_phase
+            time.sleep(0.05)
+        check(len(ended) == len(procs),
+              f"examples still running after {EXAMPLES_TIMEOUT} s: {set(procs) - set(ended)}")
+        for name, proc in procs.items():
+            out, err = proc.communicate()
+            lines = out.splitlines()
+            check(proc.returncode == 0, f"{name} exited {proc.returncode}: {err[-2000:]}")
+            found = {want: sum(want in ln for ln in lines) for want in EXAMPLE_RUNS[name][1]}
+            check(found == EXAMPLE_RUNS[name][1], f"{name}: OK lines {found}: {out[-2000:]}")
+            runs[name] = dict(seconds=ended[name], lines=len(lines), last_line=lines[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    shutil.rmtree(SCRATCH)
+    say("examples", card=card, runs=runs, seconds=time.perf_counter() - t_phase)
+
+
 def main() -> None:
     # Bring-up aid: `--stop-after build|kernels|small` ends the run early
     # (exit 0, no result lines).  With no arguments the whole run.
@@ -2995,6 +3136,8 @@ def main() -> None:
     train_full = phase_train_full(card)   # a training step at full width
     phase_dryrun(train_full)          # the dry run over meta tensors, held to train_full
     cb_launches = phase_compress_bytes()   # the deprecated list-of-blocks wrapper
+    phase_restore_distinct(data, card)     # restore(shardings=) onto cuda:0 and the CPU
+    phase_examples(card)              # examples/torch_*.py on the card
     staged = phase_path_staged_full(data, frame)              # the staged path
     launches.update({k: staged[k] for k in ("fibhash", "match_extend")})
     phase_breakdown(data[: 64 << 20])

@@ -43,10 +43,9 @@ Properties:
     (`repro_torch.resilience.retry`) around file opens and block reads.
 
 ``restore(shardings=...)`` places each leaf by a
-`repro_torch.distributed.sharding.NamedSharding` on the one device its mesh
-holds; a leaf split or replicated across distinct devices is refused: one
-torch tensor cannot hold it, and the port has no type for such a leaf
-(ROADMAP A9d, restore onto distinct devices, an open item of its own).
+`repro_torch.distributed.sharding.NamedSharding` through `device_put`: on
+the one device its mesh holds, or as a `ShardedTensor` split or replicated
+over a mesh of distinct devices (the reference's one global array).
 """
 from __future__ import annotations
 
@@ -64,6 +63,7 @@ from repro_torch.core.decode_engine import default_decode_engine
 from repro_torch.core.decoder import LZ4FormatError
 from repro_torch.core.engine import default_engine
 from repro_torch.core.lz4_types import MAX_BLOCK
+from repro_torch.distributed.sharding import check_sharding, device_put
 from repro_torch.kernels._build import KernelRefusal
 from repro_torch.resilience import retry as _retry
 from repro_torch.resilience.errors import FrameError
@@ -272,33 +272,10 @@ def _salvage_leaf(eng, e: dict, payloads, raws) -> tuple[bytes, list[int]]:
     return b"".join(parts)[:raw_size], failed
 
 
-def _sharding_device(sh, path: str):
-    """The device a `NamedSharding` puts a whole leaf on: the one device its
-    mesh holds.  A mesh of distinct devices would split or replicate the
-    leaf across them, which one torch tensor cannot hold."""
-    from repro_torch.distributed.sharding import NamedSharding
-
-    if not isinstance(sh, NamedSharding):
-        raise TypeError(f"sharding of {path} must be a repro_torch "
-                        f"NamedSharding or None, got {type(sh).__name__}")
-    for part in sh.spec:
-        for axis in (part if isinstance(part, tuple) else (part,)):
-            if axis is not None and axis not in sh.mesh.axis_names:
-                raise ValueError(f"sharding of {path}: axis {axis!r} not in "
-                                 f"mesh {sh.mesh.axis_names}")
-    devs = set(sh.mesh.devices.reshape(-1).tolist())
-    if len(devs) != 1:
-        raise NotImplementedError(
-            f"restore(shardings=...): the sharding of {path} spreads the leaf "
-            f"over {len(devs)} distinct devices, which one torch tensor "
-            "cannot hold; the port has no type for a leaf split over distinct "
-            "devices (ROADMAP queue A, item A9d: restore onto distinct devices)")
-    return devs.pop()
-
-
-def _sharding_devices(like, shardings) -> dict:
-    """Leaf path -> device, for every leaf of ``like`` that ``shardings``
-    (a tree of ``like``'s structure holding NamedSharding or None) places."""
+def _shardings_by_path(like, shardings) -> dict:
+    """Leaf path -> `NamedSharding`, for every leaf of ``like`` that
+    ``shardings`` (a tree of ``like``'s structure holding NamedSharding or
+    None) places; checked before any block is read."""
     out = {}
 
     def walk(tree, sh, path):
@@ -313,7 +290,7 @@ def _sharding_devices(like, shardings) -> dict:
             for i, (t, s) in enumerate(zip(tree, sh)):
                 walk(t, s, f"{path}/{i}")
         elif tree is not None and sh is not None:
-            out[path] = _sharding_device(sh, path)
+            out[path] = check_sharding(sh, f"sharding of {path}")
 
     if shardings is not None:
         walk(like, shardings, "")
@@ -329,10 +306,12 @@ def restore(ckpt_dir: str, step: int, like, shardings=None,
     Each restored leaf has the manifest's dtype and shape and lives on the
     device of its ``like`` leaf — on the card when that is ``meta``.
     `shardings`: None, or a tree of ``like``'s structure holding
-    `NamedSharding` (the leaf goes to the one device its mesh holds, e.g.
-    any spec on a `single_device_mesh`) or None (the ``like`` placement); a
-    sharding over distinct devices raises NotImplementedError (the port has
-    no type for a leaf split over devices; ROADMAP A9d).
+    `NamedSharding` or None (the ``like`` placement).  A leaf under a
+    `NamedSharding` is placed by `distributed.sharding.device_put`, as the
+    reference's `jax.device_put`: a plain tensor on the one device its mesh
+    holds (e.g. any spec on a `single_device_mesh`), or a `ShardedTensor`
+    over a mesh of distinct devices, split or replicated as the spec says;
+    a dimension that does not divide over its axes raises ValueError.
     `decode_engine`: optional `LZ4DecodeEngine` override (default:
     `default_decode_engine()`, the device executor on the card).
     `on_error`: ``"raise"`` (default) fails the whole restore on the first
@@ -347,7 +326,7 @@ def restore(ckpt_dir: str, step: int, like, shardings=None,
     """
     if on_error not in ("raise", "salvage"):
         raise ValueError('on_error must be "raise" or "salvage"')
-    placed = _sharding_devices(like, shardings)
+    placed = _shardings_by_path(like, shardings)
     t0 = time.perf_counter()
     eng = decode_engine or default_decode_engine()
     final = os.path.join(ckpt_dir, f"ckpt_{step}")
@@ -417,9 +396,12 @@ def restore(ckpt_dir: str, step: int, like, shardings=None,
                 obs.counter("resilience.lost_blocks",
                             "blocks salvage could not recover").inc(len(failed))
             raw_total += len(raw)
-            out_leaves[path] = leaf_from_bytes(
-                raw, e["dtype"], e["shape"],
-                placed[path] if path in placed else target_device(spec))
+            if path in placed:
+                out_leaves[path] = device_put(
+                    leaf_from_bytes(raw, e["dtype"], e["shape"], "cpu"), placed[path])
+            else:
+                out_leaves[path] = leaf_from_bytes(raw, e["dtype"], e["shape"],
+                                                   target_device(spec))
     if obs.is_enabled():
         obs.counter("checkpoint.restores", "checkpoints restored").inc()
         obs.counter("checkpoint.restore_bytes_raw",

@@ -22,9 +22,16 @@ process-wide current mesh.  `PartitionSpec` and `NamedSharding` exist for
 tree (from its path and shape), and `constrain` / `constrain_batch` are the
 identity (see there).  `NamedSharding.shard_shape` gives a leaf's piece on
 each device, which is what the dry run (`launch/dryrun.py`) counts over a
-mesh of repeated ``meta`` devices.  A leaf split across distinct devices has
-no type in the port: `checkpoint.restore(shardings=)` refuses it (ROADMAP
-A9d, an open item of its own).
+mesh of repeated ``meta`` devices.
+
+`device_put` is the counterpart of ``jax.device_put(x, NamedSharding)``: on
+a mesh of one distinct device it returns a plain tensor there; on a mesh of
+distinct devices a `ShardedTensor`, one `Shard` per mesh position (its
+`NamedSharding.shard_indices` slice, copied to that position's device).  A
+`ShardedTensor` is the form in which a later multi-card step would take its
+state; today only `checkpoint.restore(shardings=)` makes one, and no step
+of `launch/` takes one (nor does the reference's `launch/` restore with
+shardings).
 """
 from __future__ import annotations
 
@@ -39,7 +46,8 @@ import torch
 __all__ = ["Mesh", "make_mesh", "single_device_mesh", "set_global_mesh",
            "get_mesh", "use_mesh", "batch_axes", "local_batch",
            "PartitionSpec", "P", "NamedSharding", "sharding", "constrain",
-           "constrain_batch", "param_specs", "param_shardings"]
+           "constrain_batch", "param_specs", "param_shardings",
+           "check_sharding", "Shard", "ShardedTensor", "device_put"]
 
 _STATE: dict[str, Any] = {"mesh": None}
 
@@ -222,6 +230,114 @@ class NamedSharding:
                                  f"does not divide over {n} devices ({part!r})")
             shape[i] //= n
         return tuple(shape)
+
+    def shard_indices(self, global_shape) -> list[tuple[slice, ...]]:
+        """One tuple of slices per mesh position, in the mesh's row-major
+        order: where that position's piece of an array of ``global_shape``
+        lies, as `jax.sharding.NamedSharding.devices_indices_map` gives it
+        per device (``slice(None)`` for a dimension that is not split).  Keyed
+        by position, not device, because a mesh may repeat a device.  A
+        dimension split over a tuple of axes is split over the product of
+        their sizes, the first axis major."""
+        piece = self.shard_shape(global_shape)
+        sizes = self.mesh.shape
+        out = []
+        for coords in np.ndindex(*self.mesh.devices.shape):
+            at = dict(zip(self.mesh.axis_names, coords))
+            index = []
+            for i, n in enumerate(piece):
+                part = self.spec[i] if i < len(self.spec) else None
+                if part is None:
+                    index.append(slice(None))
+                    continue
+                k = 0
+                for a in (part if isinstance(part, tuple) else (part,)):
+                    k = k * sizes[a] + at[a]
+                index.append(slice(k * n, (k + 1) * n))
+            out.append(tuple(index))
+        return out
+
+
+def check_sharding(sh, what: str = "sharding") -> NamedSharding:
+    """``sh`` if it is a `NamedSharding` whose spec names only axes of its
+    mesh; else TypeError / ValueError naming ``what``."""
+    if not isinstance(sh, NamedSharding):
+        raise TypeError(f"{what} must be a repro_torch NamedSharding, "
+                        f"got {type(sh).__name__}")
+    for part in sh.spec:
+        for axis in (part if isinstance(part, tuple) else (part,)):
+            if axis is not None and axis not in sh.mesh.axis_names:
+                raise ValueError(f"{what}: axis {axis!r} not in mesh "
+                                 f"{sh.mesh.axis_names}")
+    return sh
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Shard:
+    """One mesh position's piece of a `ShardedTensor`: ``data`` (contiguous,
+    on ``device``; shape only on ``meta``) is the global tensor at
+    ``index``."""
+
+    device: torch.device
+    index: tuple[slice, ...]
+    data: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedTensor:
+    """A tensor split or replicated over the positions of a mesh of
+    distinct devices: the counterpart of a `jax.Array` under a
+    `NamedSharding`.  ``shards`` holds one `Shard` per mesh position in
+    row-major order (the order of JAX's ``addressable_shards``); a
+    replicated dimension gives every position a full copy of its own."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    sharding: NamedSharding
+    shards: tuple[Shard, ...]
+
+    @classmethod
+    def from_tensor(cls, x: torch.Tensor, sharding: NamedSharding) -> "ShardedTensor":
+        """Split ``x`` by mesh position and copy each piece to that
+        position's device — also where a device repeats."""
+        sharding = check_sharding(sharding)
+        shards = tuple(
+            Shard(dev, index, x[index].to(dev, copy=True,
+                                          memory_format=torch.contiguous_format))
+            for dev, index in zip(sharding.mesh.devices.reshape(-1).tolist(),
+                                  sharding.shard_indices(x.shape)))
+        return cls(tuple(x.shape), x.dtype, sharding, shards)
+
+    def full(self, device) -> torch.Tensor:
+        """The global tensor on ``device`` (the counterpart of
+        ``np.asarray`` of a `jax.Array`), assembled from one shard per
+        distinct index.  Raises if a shard is on ``meta``: it holds no
+        data."""
+        if any(s.device.type == "meta" for s in self.shards):
+            raise RuntimeError("ShardedTensor.full: a shard is on the meta "
+                               "device and holds no data")
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        done = set()
+        for s in self.shards:
+            key = tuple((sl.start, sl.stop) for sl in s.index)
+            if key not in done:
+                done.add(key)
+                out[s.index] = s.data
+        return out
+
+
+def device_put(x: torch.Tensor, sharding: NamedSharding):
+    """``x`` placed by ``sharding``, as ``jax.device_put(x, NamedSharding)``:
+    on a mesh of one distinct device, a plain tensor on that device; on a
+    mesh of distinct devices, a `ShardedTensor`.  A spec naming an axis the
+    mesh lacks, or a dimension that does not divide over its axes, raises
+    ValueError in either case."""
+    sharding = check_sharding(sharding)
+    sharding.shard_shape(x.shape)
+    devices = set(sharding.mesh.devices.reshape(-1).tolist())
+    if len(devices) == 1:
+        return x.to(devices.pop())
+    return ShardedTensor.from_tensor(x, sharding)
 
 
 def sharding(spec: PartitionSpec, mesh: Mesh | None = None) -> NamedSharding:

@@ -102,6 +102,7 @@ def train(args) -> dict:
         engine=LZ4Engine(device=device, scan_impl=scan), decode_engine=decode_engine,
     )
     losses = []
+    writers = []   # async checkpoint writers, joined before returning
 
     def fresh_state():
         gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -156,10 +157,12 @@ def train(args) -> dict:
                         f"dt {m['step_time']:.2f}s", flush=True,
                     )
                 if step % args.ckpt_every == 0 or step == args.steps:
-                    ckpt.save(
+                    written = ckpt.save(
                         args.ckpt_dir, step, {"params": params, "opt": opt_state},
                         async_write=args.async_ckpt, engine=ckpt_engine,
                     )
+                    if args.async_ckpt:
+                        writers.append(written)
             except SimulatedFailure as e:
                 wait = restart.record_failure()
                 print(f"[train] FAILURE: {e}; restarting in {wait:.1f}s", flush=True)
@@ -178,6 +181,10 @@ def train(args) -> dict:
                     print(f"[train] recovered at step {step}", flush=True)
         if monitor.should_remesh():
             print("[train] persistent stragglers detected -> re-mesh requested", flush=True)
+    # A writer still running when the interpreter exits would be killed
+    # mid-save (and torch aborts the process): finish every async save.
+    for w in writers:
+        w.join()
     return {"losses": losses, "final_loss": losses[-1] if losses else None,
             "straggler_events": monitor.straggler_events}
 
