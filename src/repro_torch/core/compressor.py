@@ -40,6 +40,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import scatter_candidates_ref
 from repro_torch.kernels.window_select import window_select
@@ -59,6 +60,9 @@ _PAD = 71  # block padding: max max_match (68) + 3 word-shift bytes
 # Candidate-resolution implementations: the staged ones and the fused
 # single-pass datapath.  All give the same match records.
 CANDIDATE_IMPLS = ("sort", "sortkey", "scatter", "fused")
+
+# The span factory of callers that trace nothing.
+_NO_SPANS = obs.span_factory(False)
 
 # Device-emit output buffer size per block.  The worst case compressed block
 # is literals-only: 1 token + 257 extension bytes + MAX_BLOCK literals =
@@ -270,20 +274,10 @@ def _plan_size(emit, pos, length, n):
     return total.to(torch.int32)
 
 
-def compress_blocks_records(
-    blocks_u8,
-    ns,
-    hash_bits: int = DEFAULT_HASH_BITS,
-    max_match: int = DEFAULT_MAX_MATCH,
-    pws: int = DEFAULT_PWS,
-    scan_impl: str = "sequential",
-    candidate_impl: str = "auto",
-) -> BlockRecords:
-    """Compress a micro-batch of padded blocks to per-window match records.
-
-    blocks_u8 : (M, MAX_BLOCK + _PAD) uint8 (content beyond `ns` is ignored)
-    ns        : (M,) int32 true lengths (0 <= n <= MAX_BLOCK)
-    """
+def _match_records(blocks_u8, ns, hash_bits: int, max_match: int, pws: int,
+                   scan_impl: str, candidate_impl: str, sp):
+    """The candidate and select stages of a micro-batch: ``(ns, cand, emit,
+    pos, length)`` with ``ns`` as int32."""
     if blocks_u8.dim() != 2 or blocks_u8.shape[1] != MAX_BLOCK + _PAD:
         raise ValueError(f"expected (M, {MAX_BLOCK + _PAD}) blocks, got "
                          f"{tuple(blocks_u8.shape)}")
@@ -292,25 +286,33 @@ def compress_blocks_records(
         raise ValueError(scan_impl)
     ns = ns.to(torch.int32)
 
-    if candidate_impl == "fused":
-        # Single-pass datapath: hash, candidate, word compare and the bounded
-        # extension come back from ONE kernel — no intermediate hash/word
-        # arrays.
-        cand, lengths = ops.fused_match_candidates(
-            blocks_u8, ns, positions=MAX_BLOCK, hash_bits=hash_bits, pws=pws,
-            max_match=max_match)
-        valid = lengths >= MIN_MATCH
-    else:
-        block, cand, valid4 = staged_candidates(blocks_u8, ns, candidate_impl,
-                                                hash_bits, pws)
-        lengths = ops.match_lengths(block, cand, valid4, ns, max_match=max_match)
-        valid = valid4 & (lengths >= MIN_MATCH)
+    with sp("compress.candidates"):
+        if candidate_impl == "fused":
+            # Single-pass datapath: hash, candidate, word compare and the
+            # bounded extension come back from ONE kernel — no intermediate
+            # hash/word arrays.
+            cand, lengths = ops.fused_match_candidates(
+                blocks_u8, ns, positions=MAX_BLOCK, hash_bits=hash_bits,
+                pws=pws, max_match=max_match)
+            valid = lengths >= MIN_MATCH
+        else:
+            block, cand, valid4 = staged_candidates(
+                blocks_u8, ns, candidate_impl, hash_bits, pws)
+            lengths = ops.match_lengths(block, cand, valid4, ns,
+                                        max_match=max_match)
+            valid = valid4 & (lengths >= MIN_MATCH)
 
-    if scan_impl == "sequential":
-        emit, pos, length = _select_sequential(valid, lengths, pws)
-    else:
-        emit, pos, length = _select_associative(valid, lengths, pws, max_match)
+    with sp("compress.select"):
+        if scan_impl == "sequential":
+            emit, pos, length = _select_sequential(valid, lengths, pws)
+        else:
+            emit, pos, length = _select_associative(valid, lengths, pws,
+                                                    max_match)
+    return ns, cand, emit, pos, length
 
+
+def _records(ns, cand, emit, pos, length) -> BlockRecords:
+    """The selected windows as match records, with each block's exact size."""
     # `pos` is a real position for every window (the window base where
     # nothing was eligible), so the gather needs no clamp.
     offset = pos - torch.gather(cand, 1, pos.to(torch.int64))
@@ -326,6 +328,29 @@ def compress_blocks_records(
     )
 
 
+def compress_blocks_records(
+    blocks_u8,
+    ns,
+    hash_bits: int = DEFAULT_HASH_BITS,
+    max_match: int = DEFAULT_MAX_MATCH,
+    pws: int = DEFAULT_PWS,
+    scan_impl: str = "sequential",
+    candidate_impl: str = "auto",
+    sp=_NO_SPANS,
+) -> BlockRecords:
+    """Compress a micro-batch of padded blocks to per-window match records.
+
+    blocks_u8 : (M, MAX_BLOCK + _PAD) uint8 (content beyond `ns` is ignored)
+    ns        : (M,) int32 true lengths (0 <= n <= MAX_BLOCK)
+    sp        : span factory for the stages' spans (``compress.candidates``,
+                ``.select``, ``.emit``); none recorded by default
+    """
+    stages = _match_records(blocks_u8, ns, hash_bits, max_match, pws,
+                            scan_impl, candidate_impl, sp)
+    with sp("compress.emit"):
+        return _records(*stages)
+
+
 def compress_blocks_bytes(
     blocks_u8,
     ns,
@@ -335,6 +360,7 @@ def compress_blocks_bytes(
     scan_impl: str = "sequential",
     candidate_impl: str = "auto",
     out_cap: int = OUT_CAP,
+    sp=_NO_SPANS,
 ):
     """Compress a micro-batch of padded blocks to FINAL BYTES on the device.
 
@@ -342,16 +368,21 @@ def compress_blocks_bytes(
     `compress_blocks_records` feeds straight into `kernels.ops.emit_bytes` —
     token byte-lengths, exclusive prefix-sum offsets and the byte scatter all
     stay on the device, so the only host transfer per block is its slice of
-    the (M, out_cap) uint8 output plus a size scalar.
+    the (M, out_cap) uint8 output plus a size scalar.  ``sp`` as for
+    `compress_blocks_records`.
 
     Returns ``(out, size)``: ``out[m, :size[m]]`` is block m's compressed
     bytes, bit-identical to ``emitter.emit_block(...)`` on the same records.
     """
-    rec = compress_blocks_records(
-        blocks_u8, ns, hash_bits=hash_bits, max_match=max_match, pws=pws,
-        scan_impl=scan_impl, candidate_impl=candidate_impl)
-    return ops.emit_bytes(blocks_u8, rec.emit, rec.pos, rec.length, rec.offset,
-                          ns.to(torch.int32), out_cap=out_cap)
+    ns, *stages = _match_records(blocks_u8, ns, hash_bits, max_match, pws,
+                                 scan_impl, candidate_impl, sp)
+    with sp("compress.emit"):
+        rec = _records(ns, *stages)
+        # The stages' tensors (cand alone is 4 bytes a position) are freed
+        # before the emit kernel's output is allocated.
+        del stages
+        return ops.emit_bytes(blocks_u8, rec.emit, rec.pos, rec.length,
+                              rec.offset, ns, out_cap=out_cap)
 
 
 def compress_block_records(block_u8, n, **kw) -> BlockRecords:

@@ -558,18 +558,22 @@ class LZ4DecodeEngine:
         sp = obs.span_factory(self._obs_on())
         caps = self.caps
         m = pad_pow2_count(len(batch), self.micro_batch)
-        blk = np.zeros((m, caps.blk_cap + kops.SPEC_PAD), np.uint8)
-        ns = np.zeros((m,), np.int32)
-        mo = np.zeros((m,), np.int32)
-        for j, (payload, max_out) in enumerate(batch):
-            blk[j, : len(payload)] = np.frombuffer(payload, np.uint8)
-            ns[j] = len(payload)
-            mo[j] = max_out
+        with sp("decode.stack"):
+            blk = np.zeros((m, caps.blk_cap + kops.SPEC_PAD), np.uint8)
+            ns = np.zeros((m,), np.int32)
+            mo = np.zeros((m,), np.int32)
+            for j, (payload, max_out) in enumerate(batch):
+                blk[j, : len(payload)] = np.frombuffer(payload, np.uint8)
+                ns[j] = len(payload)
+                mo[j] = max_out
         st.dispatches += 1
         with sp("decode.plan_device", rows=len(batch), executor="device",
                 crc=compute_crc):
+            with sp("decode.upload"):
+                blk_d, ns_d, mo_d = (self._upload(blk), self._upload(ns),
+                                     self._upload(mo))
             return kops.plan_decode(
-                self._upload(blk), self._upload(ns), self._upload(mo),
+                blk_d, ns_d, mo_d,
                 out_cap=caps.out_cap, max_lit=caps.max_lit,
                 max_match=caps.max_match, rounds=MAX_RESOLVE_ROUNDS,
                 compute_crc=compute_crc)
@@ -583,11 +587,17 @@ class LZ4DecodeEngine:
         the batch's status synchronizes the dispatch; a few int32 per block,
         not counted by `host_bytes`), its device row and device CRC.
         """
+        sp = obs.span_factory(self._obs_on())
+
         def drain(chunk, res):
             out, status, crc = res
-            stat = status.cpu().numpy()
-            for row, (slot, payload, _max_out) in enumerate(chunk):
-                finish(slot, payload, stat[row], out[row], crc[row])
+            # The copy to host is the sync point: its span is the host's
+            # wait on the device.
+            with sp("decode.wait"):
+                stat = status.cpu().numpy()
+            with sp("decode.finish"):
+                for row, (slot, payload, _max_out) in enumerate(chunk):
+                    finish(slot, payload, stat[row], out[row], crc[row])
 
         inflight = None
         for start in range(0, len(jobs), self.micro_batch):
@@ -696,19 +706,20 @@ class LZ4DecodeEngine:
         out: list = [None] * len(entries)
         jobs = []
         pending_crc: list = []
-        for j, (i, b) in enumerate(entries):
-            payload = frame[b["offset"]: b["offset"] + b["csize"]]
-            if b["raw"]:
-                with sp("decode.verify", block=i, raw=True):
-                    check_block(i, b["usize"], b["crc"], payload)
-                out[j] = self._host_result(payload, to_device)
-                continue
-            if len(payload) > self.caps.blk_cap:
-                out[j] = self._specplan_host_fallback(
-                    i, b, payload, to_device, st, sp)
-                continue
-            meta[j] = (i, b)
-            jobs.append((j, payload, b["usize"]))
+        with sp("decode.split"):
+            for j, (i, b) in enumerate(entries):
+                payload = frame[b["offset"]: b["offset"] + b["csize"]]
+                if b["raw"]:
+                    with sp("decode.verify", block=i, raw=True):
+                        check_block(i, b["usize"], b["crc"], payload)
+                    out[j] = self._host_result(payload, to_device)
+                    continue
+                if len(payload) > self.caps.blk_cap:
+                    out[j] = self._specplan_host_fallback(
+                        i, b, payload, to_device, st, sp)
+                    continue
+                meta[j] = (i, b)
+                jobs.append((j, payload, b["usize"]))
 
         def finish(slot, payload, stat, row, crc):
             i, b = meta[slot]
@@ -938,7 +949,8 @@ class LZ4DecodeEngine:
                 parts = self._decode_entries_device(
                     frame, list(enumerate(blocks)), to_device=True,
                     verify=verify, st=st)
-                out = self._join_device(parts)
+                with sp("decode.join"):
+                    out = self._join_device(parts)
                 if verify and info["content_crc"] is not None:
                     # Whole-object trailer, checked on the device over the
                     # joined tensor; only the checksum crosses to the host.

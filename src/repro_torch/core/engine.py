@@ -335,7 +335,7 @@ class LZ4Engine:
             return fn(stack_dev, ns_dev, hash_bits=self.hash_bits,
                       max_match=self.max_match, pws=self.pws,
                       scan_impl=self.scan_impl,
-                      candidate_impl=self.candidate_impl)
+                      candidate_impl=self.candidate_impl, sp=self._sp)
 
     def _pad_batch(self, chunks: list[bytes], staging: _Staging):
         """Stack chunks into a fixed-shape micro-batch (padded rows get n=0)."""
@@ -360,15 +360,12 @@ class LZ4Engine:
         carry their own, which is what keeps `totals` exact under threaded
         use; the staging buffers are call-local for the same reason.
         """
-        chunks = [data[i: i + MAX_BLOCK] for i in range(0, len(data), MAX_BLOCK)]
+        self._sp = obs.span_factory(self._obs_on())
+        with self._sp("compress.split"):
+            chunks = [data[i: i + MAX_BLOCK]
+                      for i in range(0, len(data), MAX_BLOCK)]
         st.blocks += len(chunks)
         st.bytes_in += len(data)
-        ob = self._obs_on()
-        self._sp = obs.span_factory(ob)
-        occupancy = obs.registry().gauge(
-            "engine.inflight_batches",
-            "micro-batches dispatched but not yet drained (double buffer)",
-        ) if ob else obs.NOOP_METRIC
         staging = _Staging(self.device, min(
             self.micro_batch, pad_pow2_count(len(chunks), self.micro_batch)))
         inflight = None
@@ -376,20 +373,11 @@ class LZ4Engine:
             batch = chunks[start: start + self.micro_batch]
             stack, ns = self._pad_batch(batch, staging)
             res = self._dispatch(stack, ns, staging, st)
-            occupancy.inc()
             if inflight is not None:
-                # Double-buffer overlap: batch i drains while i+1 computes.
-                if ob:
-                    obs.registry().counter(
-                        "engine.overlapped_dispatches",
-                        "dispatches issued while the previous batch was "
-                        "still in flight").inc()
                 yield from self._drain(*inflight, st)
-                occupancy.dec()
             inflight = (batch, res)
         if inflight is not None:
             yield from self._drain(*inflight, st)
-            occupancy.dec()
 
     def _fetch_sliced(self, out_dev, j: int, size: int, st: EngineStats) -> bytes:
         """Slice-fetch exactly `size` compressed bytes of row j (the slice
@@ -483,7 +471,8 @@ class LZ4Engine:
                     usizes.append(n)
                     # Content checksum over the ORIGINAL chunk (only the
                     # compressor ever sees it): decode verifies per block.
-                    crcs.append(block_crc(chunk))
+                    with sp("compress.crc"):
+                        crcs.append(block_crc(chunk))
                 with sp("compress.frame", blocks=len(payloads)):
                     frame = encode_frame(
                         payloads, usizes, raws, checksums=crcs,

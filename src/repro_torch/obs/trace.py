@@ -112,10 +112,12 @@ class Tracer:
 
     ``max_events`` bounds memory: past it new spans are counted in
     ``dropped`` instead of stored (the artifact records the drop count, so
-    a truncated trace is never mistaken for a complete one).
+    a truncated trace is never mistaken for a complete one).  The default
+    holds a minute of 256 MiB compress calls with their per-block spans
+    (about 8,500 spans a call).
     """
 
-    def __init__(self, max_events: int = 500_000):
+    def __init__(self, max_events: int = 2_000_000):
         self.max_events = max_events
         self.dropped = 0
         self.origin_ns = time.perf_counter_ns()
