@@ -144,6 +144,46 @@ def _slice_payload(out: np.ndarray, j: int, size: int) -> bytes:
     return out[j, :size].tobytes()
 
 
+def _pack_payloads(out: torch.Tensor, size: torch.Tensor,
+                   ns: torch.Tensor) -> torch.Tensor:
+    """A micro-batch's coded payloads back to back, on the device.
+
+    Row j's first ``size[j]`` bytes for every row `compress` codes
+    (``size < n``: raw-bound rows and padded rows, n = 0, drop out), in row
+    order at the exclusive prefix sum of those sizes.  A coded size is below
+    n <= MAX_BLOCK, so M * MAX_BLOCK bytes hold them all; the bytes no row
+    keeps are scattered to one sink slot past the end.  Stock ops queued on
+    the stream: no host sync.
+    """
+    M, cap = out.shape
+    keep = torch.where(size < ns, size, torch.zeros_like(size)).to(torch.int64)
+    start = torch.cumsum(keep, 0) - keep
+    col = torch.arange(cap, dtype=torch.int64, device=out.device)
+    sink = M * MAX_BLOCK
+    dest = torch.where(col < keep[:, None], start[:, None] + col, sink)
+    packed = torch.empty((sink + 1,), dtype=torch.uint8, device=out.device)
+    return packed.scatter_(0, dest.view(-1), out.reshape(-1))
+
+
+def _fetch_packed(packed: torch.Tensor, total: int) -> memoryview:
+    """``packed[:total]`` in a host buffer of its own, in one synchronous
+    copy.  No micro-batch's copy overwrites another's, so views of it stay
+    valid for as long as they are held.  From the card the buffer is pinned,
+    from PyTorch's caching host allocator: later calls get the same pages
+    back, already mapped, where fresh host memory for the payloads would
+    cost a page fault every 4 KiB."""
+    host = torch.empty((total,), dtype=torch.uint8,
+                       pin_memory=packed.device.type == "cuda")
+    host.copy_(packed[:total])
+    return memoryview(host.numpy())
+
+
+def _packed_payload(st: EngineStats, payload: memoryview) -> memoryview:
+    """A coded block's bytes: a view of its micro-batch's packed copy."""
+    st.host_bytes += len(payload)
+    return payload
+
+
 class _Staging:
     """Host-side micro-batch buffers for one call.
 
@@ -253,10 +293,11 @@ class LZ4Engine:
         # and emit on host via emit_block (the bit-identity oracle path).
         self.device_emit = device_emit
         # drain="sliced" (device_emit only): two-step fetch — size scalars
-        # first, then exactly `size` bytes per block, and NOTHING for
-        # blocks bound for raw passthrough — so host_bytes is the exact
-        # compressed payload.  "full" fetches the whole padded (M, out_cap)
-        # buffer per micro-batch in one transfer (fewer, larger copies).
+        # first, then the coded blocks' exact bytes, packed on the device
+        # into ONE copy a micro-batch, and NOTHING for blocks bound for raw
+        # passthrough — so host_bytes is the exact compressed payload.
+        # "full" fetches the whole padded (M, out_cap) buffer per
+        # micro-batch in one transfer.
         self.drain = drain
         # content_crc=True: stamp a whole-object CRC32 trailer on every
         # frame (version 5) on top of the per-block checksums.  Default
@@ -332,10 +373,15 @@ class LZ4Engine:
         with self._sp("compress.dispatch", rows=len(ns),
                       impl=self.candidate_impl):
             stack_dev, ns_dev = staging.upload(stack, ns)
-            return fn(stack_dev, ns_dev, hash_bits=self.hash_bits,
-                      max_match=self.max_match, pws=self.pws,
-                      scan_impl=self.scan_impl,
-                      candidate_impl=self.candidate_impl, sp=self._sp)
+            res = fn(stack_dev, ns_dev, hash_bits=self.hash_bits,
+                     max_match=self.max_match, pws=self.pws,
+                     scan_impl=self.scan_impl,
+                     candidate_impl=self.candidate_impl, sp=self._sp)
+            if self.device_emit and self.drain == "sliced":
+                # Packed after `compress_blocks_bytes` returns, so the drain
+                # copies exactly the bytes it returned.
+                res = (*res, _pack_payloads(*res, ns_dev))
+            return res
 
     def _pad_batch(self, chunks: list[bytes], staging: _Staging):
         """Stack chunks into a fixed-shape micro-batch (padded rows get n=0)."""
@@ -351,8 +397,10 @@ class LZ4Engine:
     def _payload_iter(self, data: bytes, st: EngineStats):
         """Yield (chunk, n, size, payload_fn) per block, counting into `st`.
 
-        `payload_fn()` materializes the compressed block bytes: a buffer
-        slice on the device-emit path, a host `emit_block` call otherwise.
+        `payload_fn()` materializes the compressed block bytes: with the
+        sliced drain a memoryview of its micro-batch's packed copy (bytes
+        for a raw-bound block, fetched alone), a buffer slice with the full
+        drain, a host `emit_block` call without ``device_emit``.
         Double-buffered: micro-batch i+1 is padded and dispatched before the
         host blocks on micro-batch i's results, so host-side padding (and
         frame assembly) overlaps device compute.  ``st`` is the CALL-LOCAL
@@ -380,31 +428,56 @@ class LZ4Engine:
             yield from self._drain(*inflight, st)
 
     def _fetch_sliced(self, out_dev, j: int, size: int, st: EngineStats) -> bytes:
-        """Slice-fetch exactly `size` compressed bytes of row j (the slice
-        is taken on the device; only the payload crosses to host)."""
+        """Slice-fetch exactly `size` bytes of row j alone: the payload of a
+        block bound for raw passthrough, which the packed copy leaves out,
+        when a caller asks for it (`compress_to_blocks`)."""
         with self._sp("compress.drain", bytes=size):
             data = out_dev[j, :size].cpu().numpy().tobytes()
         st.host_bytes += size
+        if self._obs_on():
+            r = obs.registry()
+            r.counter("engine.drain_copies",
+                      "payload copies from the device").inc()
+            r.counter("engine.drain_fallback_blocks",
+                      "payloads fetched alone, outside the packed copy").inc()
         return data
 
     def _drain(self, batch: list[bytes], res, st: EngineStats):
         if self.device_emit:
             if self.drain == "sliced":
-                # Two-step drain: sync on the tiny size vector, then fetch
-                # exactly size[j] bytes per block — lazily, so blocks the
-                # caller stores as raw passthrough (size >= n) never fetch
-                # their emit buffer at all.
-                out_dev, size_dev = res
+                # Two-step drain: sync on the tiny size vector, then ONE copy
+                # of the coded payloads `_dispatch` packed on the device; each
+                # coded block's payload is a view of it.  Blocks the caller
+                # stores as raw passthrough (size >= n) are not in it.
+                out_dev, size_dev, packed_dev = res
                 # The copy to host is the sync point: its span measures how
                 # long the host WAITS on device compute (the rest of the
                 # drain is host-side transfer/assembly).
                 with self._sp("compress.wait", rows=len(batch)):
                     size = size_dev.cpu().numpy()
                 st.host_bytes += size.nbytes
+                sizes = size[: len(batch)].tolist()
+                coded = [s < len(c) for s, c in zip(sizes, batch)]
+                total = sum(s for s, k in zip(sizes, coded) if k)
+                views = [None] * len(batch)
+                if total:
+                    with self._sp("compress.drain", bytes=total):
+                        host = _fetch_packed(packed_dev, total)
+                        off = 0
+                        for j, s in enumerate(sizes):
+                            if coded[j]:
+                                views[j] = host[off: off + s]
+                                off += s
+                    if self._obs_on():
+                        obs.registry().counter(
+                            "engine.drain_copies",
+                            "payload copies from the device").inc()
                 for j, chunk in enumerate(batch):
-                    s = int(size[j])
-                    yield chunk, len(chunk), s, functools.partial(
-                        self._fetch_sliced, out_dev, j, s, st)
+                    s = sizes[j]
+                    yield chunk, len(chunk), s, (
+                        functools.partial(_packed_payload, st, views[j])
+                        if coded[j] else
+                        functools.partial(self._fetch_sliced, out_dev, j, s, st))
                 return
             with self._sp("compress.wait", rows=len(batch)):
                 out, size = (t.cpu().numpy() for t in res)
@@ -515,7 +588,7 @@ class LZ4Engine:
         try:
             with obs.span_factory(self._obs_on())(
                     "compress.total", bytes_in=len(data), framing=False):
-                blocks = [payload_fn() for _, _, _, payload_fn
+                blocks = [bytes(payload_fn()) for _, _, _, payload_fn
                           in self._payload_iter(data, st)]
             st.bytes_out = sum(len(b) for b in blocks)
             return blocks

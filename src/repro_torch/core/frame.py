@@ -193,7 +193,9 @@ def encode_frame(payloads: list[bytes], usizes: list[int],
                  parity_group: int | None = None) -> bytes:
     """Assemble a frame from per-block payloads.
 
-    payloads  : compressed block bytes (or raw input bytes where flagged)
+    payloads  : compressed block bytes (or raw input bytes where flagged);
+                any bytes-like object, joined into the frame without a
+                copy of its own (the engine's drain hands memoryviews)
     usizes    : uncompressed size of each block
     raw_flags : True where the payload is stored raw (uncompressible block)
     checksums : optional per-block `block_crc` of the UNCOMPRESSED content;
@@ -284,7 +286,7 @@ def encode_frame(payloads: list[bytes], usizes: list[int],
             parts.append(_ENTRY_V1.pack(usize, cf))
         else:
             parts.append(_ENTRY_V2.pack(usize, cf, checksums[i] & 0xFFFFFFFF))
-    parts.extend(bytes(p) for p in payloads)
+    parts.extend(payloads)
     if version == VERSION_V6:
         groups = parity_group_blocks([bytes(p) for p in payloads],
                                      parity_group)

@@ -310,7 +310,7 @@ def shard_blocks_sharded(engine, data: bytes, st) -> list[bytes]:
     with sp("compress.merge", blocks=len(chunks), shards=engine.shards,
             framing=False):
         for items in per_shard:
-            out.extend(payload_fn() for _, _, _, payload_fn in items)
+            out.extend(bytes(payload_fn()) for _, _, _, payload_fn in items)
     return out
 
 
