@@ -15,6 +15,7 @@ sys.path[:0] = [str(ROOT.parent), str(ROOT.parent / "src")]
 
 from portbench import harness  # noqa: E402
 from portbench.objects import rng_of  # noqa: E402
+from portbench.tests import checks  # noqa: E402
 
 BENCH = harness.load_json(ROOT.parent / "BENCHMARK.json")
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -22,16 +23,7 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 @pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
 def test_each_cell_finds_its_files_by_name(workload):
-    cell = harness.resolve(BENCH, workload)
-    entry = next(w for w in BENCH["workloads"] if w["name"] == workload)
-    assert cell.traffic["driver"] in ("compress", "decode")
-    assert hasattr(cell.driver, "Driver") and cell.driver.LIMITS
-    assert cell.config["name"] == entry["config"]
-    names = [m["name"] for m, _ in cell.end_to_end]
-    assert "setup_s" in names and len(names) >= 2
-    assert cell.per_layer
-    for m, module in cell.end_to_end + cell.per_layer:
-        assert callable(module.read), m["name"]
+    checks.check_cell_files(BENCH, workload, ROOT)
 
 
 def test_benchmark_json_keeps_to_its_shape():
@@ -200,12 +192,4 @@ def test_forbidden_modules_compares_top_level_names_whole(modules, found):
 def test_traced_run_reads_the_programs_spans():
     """A traced run on the CPU: the span metrics are read from the program's
     own spans; the device ones find no device and are left out."""
-    cell = harness.resolve(BENCH, "paper.decode.bulk64")
-    r = harness.run_cell(cell, 5, 0.0, True, device="cpu", object_bytes=2 * 65536)
-    assert r["correct"] and r["attempted"] == 3          # profiled calls 1 and 2
-    assert set(r["metrics"]) == {"host_loop_ms_per_MiB.decode",
-                                 "plan_device_ms_per_MiB.decode",
-                                 "verify_ms_per_MiB.decode"}
-    assert all(m["value"] > 0 for m in r["metrics"].values())
-    assert r["device"]["busy_s"] == 0.0 and r["device"]["window_s"] > 0
-    assert set(r["breakdown"]) == {"device_ops", "idle_gaps"}
+    checks.check_traced_run(BENCH, "paper.decode.bulk64", ROOT, object_bytes=2 * 65536)

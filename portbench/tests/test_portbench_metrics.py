@@ -10,6 +10,7 @@ sys.path[:0] = [str(ROOT.parent), str(ROOT.parent / "src")]
 
 from portbench import harness  # noqa: E402
 from portbench import trace as tr  # noqa: E402
+from portbench.tests import checks  # noqa: E402
 
 MIB = 1 << 20
 PEAKS = {"hbm_bytes_per_s": 3.35e12}
@@ -48,6 +49,7 @@ EXPECTED = {
     "idle_share.decode": (DECODE, 10.0),
 }
 BENCH = harness.load_json(ROOT.parent / "BENCHMARK.json")
+FIXTURES = {**EXPECTED, **checks.fixture_files(ROOT)}
 
 
 def reader(kind, name):
@@ -55,18 +57,18 @@ def reader(kind, name):
 
 
 def test_every_per_layer_metric_has_a_fixture():
-    assert {m["name"] for m in BENCH["per_layer"]} == set(EXPECTED)
+    checks.check_fixtures(BENCH, ROOT, EXPECTED)
 
 
-@pytest.mark.parametrize("name", sorted(EXPECTED))
+@pytest.mark.parametrize("name", sorted(FIXTURES))
 def test_per_layer_metric_reads_its_fixture(name):
-    ctx, want = EXPECTED[name]
+    ctx, want = FIXTURES[name]
     assert reader("per_layer", name).read(ctx) == pytest.approx(want, rel=1e-12)
 
 
-@pytest.mark.parametrize("name", sorted(EXPECTED))
+@pytest.mark.parametrize("name", sorted(FIXTURES))
 def test_per_layer_metric_reads_nothing_where_there_is_nothing(name):
-    ctx, _ = EXPECTED[name]
+    ctx, _ = FIXTURES[name]
     read = reader("per_layer", name).read
     assert read(dict(ctx, spans={}, profile=None)) is None
     if "roofline" in name:
