@@ -103,6 +103,11 @@ def _round_bucket(rounds: int) -> int:
     return b
 
 
+def _raw_bytes(blocks: list[dict]) -> int:
+    """Content bytes of a frame's raw-passthrough blocks."""
+    return sum(b["usize"] for b in blocks if b["raw"])
+
+
 @functools.lru_cache(maxsize=1)
 def default_decode_engine() -> "LZ4DecodeEngine":
     """Process-wide default engine (used by `frame.decode_frame`): the
@@ -299,8 +304,9 @@ class LZ4DecodeEngine:
     def _obs_on(self) -> bool:
         return obs.enabled_for(self.telemetry)
 
-    def _finish_call(self, st: DecodeStats) -> None:
-        """Fold the finished call's stats into `totals` + the obs registry."""
+    def _finish_call(self, st: DecodeStats, raw_bytes: int = 0) -> None:
+        """Fold the finished call's stats into `totals` + the obs registry;
+        ``raw_bytes`` is the call's raw-passthrough content."""
         s = st
         s.calls = 1
         with self._totals_lock:
@@ -311,6 +317,8 @@ class LZ4DecodeEngine:
             r.counter("decode.blocks", "frame blocks decoded").inc(s.blocks)
             r.counter("decode.raw_blocks",
                       "raw-passthrough blocks").inc(s.raw_blocks)
+            r.counter("decode.raw_bytes",
+                      "raw-passthrough bytes").inc(raw_bytes)
             r.counter("decode.bytes_in", "compressed bytes in").inc(s.bytes_in)
             r.counter("decode.bytes_out", "decoded bytes out").inc(s.bytes_out)
             r.counter("decode.dispatches",
@@ -394,7 +402,7 @@ class LZ4DecodeEngine:
                     executor=self.executor):
                 return self._decode_blocks_inner(payloads, raws, usizes, st)
         finally:
-            self._finish_call(st)
+            self._finish_call(st, sum(len(p) for p, r in zip(payloads, raws) if r))
 
     def _decode_blocks_inner(self, payloads, raws, usizes,
                              st: DecodeStats) -> list[bytes]:
@@ -710,9 +718,7 @@ class LZ4DecodeEngine:
             for j, (i, b) in enumerate(entries):
                 payload = frame[b["offset"]: b["offset"] + b["csize"]]
                 if b["raw"]:
-                    with sp("decode.verify", block=i, raw=True):
-                        check_block(i, b["usize"], b["crc"], payload)
-                    out[j] = self._host_result(payload, to_device)
+                    out[j] = self._raw_result(i, b, payload, to_device, sp)
                     continue
                 if len(payload) > self.caps.blk_cap:
                     out[j] = self._specplan_host_fallback(
@@ -815,9 +821,7 @@ class LZ4DecodeEngine:
         for j, (i, b) in enumerate(entries):
             payload = frame[b["offset"]: b["offset"] + b["csize"]]
             if b["raw"]:
-                with sp("decode.verify", block=i, raw=True):
-                    check_block(i, b["usize"], b["crc"], payload)
-                out[j] = self._host_result(payload, to_device)
+                out[j] = self._raw_result(i, b, payload, to_device, sp)
                 continue
             try:
                 plan, dplan = self._plan_for_device(payload, b["usize"])
@@ -859,6 +863,15 @@ class LZ4DecodeEngine:
                              compute_crc=bool(to_device and verify))
         self._check_pending_crcs(pending_crc, sp)
         return out
+
+    def _raw_result(self, i: int, b: dict, payload: bytes, to_device: bool, sp):
+        """A raw-passthrough block: its CRC-32 checked on the host, then, for
+        the device, its upload (span ``decode.raw`` around both)."""
+        raw_sp = sp if to_device else obs.span_factory(False)
+        with raw_sp("decode.raw", block=i, bytes=b["usize"]):
+            with sp("decode.verify", block=i, raw=True):
+                check_block(i, b["usize"], b["crc"], payload)
+            return self._host_result(payload, to_device)
 
     def _host_result(self, data: bytes, to_device: bool):
         if not to_device:
@@ -920,7 +933,7 @@ class LZ4DecodeEngine:
             st.bytes_out = len(out)
             return out
         finally:
-            self._finish_call(st)
+            self._finish_call(st, _raw_bytes(blocks))
 
     def decode_to_device(self, frame: bytes, verify: bool = True):
         """Frame -> decoded bytes as ONE uint8 tensor on the engine's device.
@@ -960,7 +973,7 @@ class LZ4DecodeEngine:
             st.bytes_out = sum(b["usize"] for b in blocks)
             return out
         finally:
-            self._finish_call(st)
+            self._finish_call(st, _raw_bytes(blocks))
 
 
 class FrameReader:

@@ -212,6 +212,9 @@ def restore_cache(obj, decode_engine=None, to_device: bool = False,
         tree = unflatten(treedef, leaves)
     if obs.is_enabled():
         obs.counter("serving.restores", "cache restores").inc()
+        obs.counter("serving.restore_leaves", "cache leaves restored").inc(len(leaves))
+        obs.counter("serving.restore_bytes", "cache bytes restored").inc(
+            sum(x.numel() * x.element_size() for x in leaves))
         obs.histogram("serving.restore_seconds",
                       help="restore_cache latency").observe(
             time.perf_counter() - t0)

@@ -1,6 +1,8 @@
 """The spans inside the port's two engines, on the CPU: each span's parent,
 thread and count per call, the time its parent's direct children take, and
-that tracing changes no output and, when off, records nothing.
+that tracing changes no output and, when off, records nothing.  Also
+`serving.restore_cache`'s counters and the decode engine's
+``decode.raw_bytes`` on a restore to the device.
 
 Spans in functions the engines call (`compressor.compress_blocks_bytes`) come
 through the engine's own span factory, so an engine with ``telemetry=True``
@@ -16,6 +18,8 @@ import pytest
 import torch
 
 from repro_torch import LZ4DecodeEngine, LZ4Engine, obs
+from repro_torch.core.frame import MAX_BLOCK, frame_info
+from repro_torch.serving import engine as serving
 
 from test_torch_util import multiblock_corpus
 
@@ -34,6 +38,7 @@ DECODE_SPANS = {
     "decode.wait": ("decode.total", "dispatch"),
     "decode.finish": ("decode.total", "dispatch"),
     "decode.join": ("decode.total", "call"),
+    "decode.raw": ("decode.split", "raw block"),
 }
 SPANS = {**COMPRESS_SPANS, **DECODE_SPANS}
 MICRO_BATCH = 1      # 5 compress and 4 decode dispatches for the 5-block corpus
@@ -80,12 +85,23 @@ def rows_and_stats(name: str):
 
 
 def per_call(how: str, stats) -> int:
-    return {"call": 1, "block": stats.blocks, "dispatch": stats.dispatches}[how]
+    return {"call": 1, "block": stats.blocks, "dispatch": stats.dispatches,
+            "raw block": stats.raw_blocks}[how]
 
 
 def test_the_corpus_gives_several_dispatches():
     for key in ("compress", "decode"):
         assert runs()[key][1].dispatches >= 3
+    assert runs()["decode"][1].raw_blocks == 1
+
+
+def test_a_raw_blocks_crc_sits_inside_its_decode_raw():
+    rows, stats = runs()["decode"]
+    raw = [r for r in rows if r["name"] == "decode.raw"]
+    crcs = [r for r in rows if r["name"] == "decode.verify" and r["args"].get("raw")]
+    assert [r["args"]["bytes"] for r in raw] == [MAX_BLOCK]
+    assert len(crcs) == stats.raw_blocks
+    assert {r["parent"] for r in crcs} == {"decode.raw"}
 
 
 @pytest.mark.parametrize("name", sorted(SPANS))
@@ -123,6 +139,56 @@ def test_outputs_are_the_same_traced_or_not():
     assert r["frame"] == r["plain"]
     want = torch.frombuffer(bytearray(r["data"]), dtype=torch.uint8)
     assert torch.equal(r["out"], want) and torch.equal(r["plain_out"], want)
+
+
+def cache_tree() -> dict:
+    """A cache-like tree: a bfloat16 leaf of a noise block (stored raw) and
+    a zero block (coded), an int32 leaf and a tiny one (a raw frame)."""
+    g = torch.Generator().manual_seed(7)
+    kv = torch.zeros(2, MAX_BLOCK // 2, dtype=torch.bfloat16)
+    kv[0] = torch.randn(MAX_BLOCK // 2, generator=g).to(torch.bfloat16)
+    return {"k": kv, "pos": torch.arange(4096, dtype=torch.int32),
+            "step": torch.tensor(3, dtype=torch.int32)}
+
+
+def restored(enabled: bool):
+    """(the tree, its frames' blocks, the counters, the span names) of one
+    `restore_cache` to the device with the global switch at ``enabled``."""
+    tree = cache_tree()
+    blob, _ = serving.offload_cache(tree, engine=compress_engine(False))
+    was = obs.is_enabled()
+    obs.configure(enabled=enabled)
+    try:
+        obs.reset()
+        out = serving.restore_cache(blob, decode_engine(None), to_device=True)
+        counters = dict(obs.snapshot()["metrics"]["counters"])
+        names = {r["name"] for r in obs.tracer().finished()}
+    finally:
+        obs.reset()
+        obs.configure(enabled=was)
+    for k, v in tree.items():
+        assert out[k].dtype == v.dtype and torch.equal(out[k], v)
+    blocks = [b for leaf in blob[1] for b in frame_info(leaf["frame"])["blocks"]]
+    return tree, blocks, counters, names
+
+
+def test_restore_counts_leaves_bytes_and_raw_bytes():
+    tree, blocks, counters, names = restored(True)
+    raw = [b["usize"] for b in blocks if b["raw"]]
+    # At least the noise half of "k" and the 4-byte frame of "step" are raw,
+    # and the zero half of "k" is coded.
+    assert MAX_BLOCK in raw and 4 in raw and len(raw) < len(blocks)
+    assert counters["serving.restores"] == 1
+    assert counters["serving.restore_leaves"] == len(tree) == 3
+    assert counters["serving.restore_bytes"] == MAX_BLOCK * 2 + 4096 * 4 + 4
+    assert counters["decode.raw_blocks"] == len(raw)
+    assert counters["decode.raw_bytes"] == sum(raw)
+    assert {"serving.restore", "decode.raw"} <= names
+
+
+def test_restore_records_nothing_with_telemetry_off():
+    _, _, counters, names = restored(False)
+    assert counters == {} and names == set()
 
 
 def test_nothing_is_recorded_with_telemetry_off():
