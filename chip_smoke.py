@@ -120,6 +120,7 @@ from repro_torch.kernels import emit_scatter as k_emit  # noqa: E402
 from repro_torch.kernels import fibhash as k_fib  # noqa: E402
 from repro_torch.kernels import fused_compress as k_fused  # noqa: E402
 from repro_torch.kernels import match_extend as k_ext  # noqa: E402
+from repro_torch.kernels import plan_layout as k_layout  # noqa: E402
 from repro_torch.kernels import plan_speculative as k_plan  # noqa: E402
 from repro_torch.kernels import window_select as k_select  # noqa: E402
 from repro_torch._tree import flatten, flatten_with_paths, tree_map  # noqa: E402
@@ -163,12 +164,12 @@ SWEEP = [(6, 12, 8), (10, 68, 4), (8, 36, 16), (12, 36, 8)]
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 KERNEL_MODULES = (k_fused, k_emit, k_select)           # the write path's
-READ_KERNEL_MODULES = (k_wave, k_plan, k_crc)          # the read path's
+READ_KERNEL_MODULES = (k_wave, k_plan, k_crc, k_layout)  # the read path's
 STAGED_KERNEL_MODULES = (k_fib, k_ext)                 # the staged path's
 ALL_KERNEL_MODULES = KERNEL_MODULES + STAGED_KERNEL_MODULES
 EVERY_KERNEL_MODULE = ALL_KERNEL_MODULES + READ_KERNEL_MODULES
 WRITE_KERNELS = ("fused_compress", "emit_scatter", "window_select")
-READ_KERNELS = ("decode_wave", "plan_speculative", "crc32")
+READ_KERNELS = ("decode_wave", "plan_speculative", "crc32", "plan_layout")
 # Checkpoints, shards and the like go here (inside the checkout, git-ignored).
 SCRATCH = ROOT / "build" / "smoke_scratch"
 SALVAGE_FULL_BYTES = 256 << 20
@@ -211,6 +212,12 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.numel() == 0:
         return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def read_want(wave, plan, crc) -> dict:
+    """The read kernels' launches: `plan_decode` launches `plan_speculative`
+    and `plan_layout` once a dispatch each, the host planner neither."""
+    return dict(decode_wave=wave, plan_speculative=plan, crc32=crc, plan_layout=plan)
 
 
 def reset_launches(modules=KERNEL_MODULES) -> None:
@@ -1012,6 +1019,56 @@ def crc_cases(note, rng) -> np.ndarray:
     return long_row
 
 
+def literal_block(data: bytes) -> bytes:
+    """A valid block of one literals-only (final) sequence, of any length."""
+    v = len(data)
+    head = bytes([0xF0]) + b"\xff" * ((v - 15) // 255) + bytes([(v - 15) % 255]) \
+        if v >= 15 else bytes([v << 4])
+    return head + data
+
+
+def layout_cases(note, rows: list[bytes], hard: list[bytes]) -> None:
+    """plan_layout against its plain version on the same header fields (the
+    plan_speculative kernel's): the read-path rows and the chain-select rows
+    at M = 8 and M = 64 under the default caps, with noise past n; at a
+    width off 4 (is_start read one int32 at a time); caps that overflow
+    (max_lit, max_match 40; out_cap 4099, off 4, so the writes go one int32
+    at a time); small max_out; and the wide caps (B = 98,432, out_cap =
+    131,072) with a 90,000-byte literal run."""
+    def both(b, n, mo, caps: DevicePlanCaps):
+        fields = k_plan.plan_speculative(b, n)
+        kw = dict(max_lit=caps.max_lit, max_match=caps.max_match, out_cap=caps.out_cap)
+        got = k_layout.plan_layout(*fields, n, mo, **kw)
+        torch.cuda.synchronize()
+        note("plan_layout", *zip(got, k_layout.plan_layout_plain(*fields, n, mo, **kw)))
+        return got
+
+    pool = rows + hard
+    B = CAPS.blk_cap + ops.SPEC_PAD
+    rng = np.random.default_rng(SEED + 30)
+    for M in (8, 64):
+        pick_rows = [pool[j % len(pool)] for j in range(M)] if M == 8 else \
+            [pool[int(j) % len(pool)] for j in rng.permutation(max(M, len(pool)))[:M]]
+        for garbage in (False, True):
+            b, n = stack_rows(pick_rows, B, garbage, SEED + 31)
+            mo = torch.full((M,), MAX_BLOCK, dtype=torch.int32, device=DEV)
+            status = both(b, n, mo, CAPS)[0]
+            check(int((status[:, ops.SPEC_ERR] == 0).sum()) > 0,
+                  "plan_layout: no clean row among the checked rows")
+        mo = torch.from_numpy(rng.integers(0, MAX_BLOCK + 1, M).astype(np.int32)).to(DEV)
+        both(b, n, mo, CAPS)
+        both(b, n, torch.full_like(mo, MAX_BLOCK),
+             DevicePlanCaps(max_lit=40, max_match=40, out_cap=4099))
+    ob, on = stack_rows(rows[:16], B + 3, True, SEED + 32)
+    both(ob, on, torch.full((16,), MAX_BLOCK, dtype=torch.int32, device=DEV), CAPS)
+    wide = [literal_block(rng.integers(0, 256, 90_000, np.uint8).tobytes())] + rows[:7]
+    caps = DevicePlanCaps(blk_cap=WIDE_CAPS[0].blk_cap, out_cap=WIDE_CAPS[1].out_cap)
+    wb, wn = stack_rows(wide, caps.blk_cap + ops.SPEC_PAD, True, SEED + 33)
+    status, total = both(wb, wn, torch.full((8,), caps.out_cap, dtype=torch.int32,
+                                            device=DEV), caps)[:2]
+    check(int(total[0]) == 90_000, "plan_layout: the wide literal row's total")
+
+
 def wide_times(spec_rows_wide, main_like: list[bytes]) -> dict:
     """Times of the two wide kernels at M = 8, with their bounds: not on any
     default path, so recorded, not tuned."""
@@ -1111,6 +1168,8 @@ def phase_decode_kernels() -> dict:
         torch.cuda.synchronize()
         note("plan_speculative", *zip(got, k_plan.plan_speculative_plain(wb, wn)))
     spec_wide = plan_wide_cases(note, rows)
+    # plan_layout: on the header kernel's fields of the same rows
+    layout_cases(note, rows, hard)
     # the fused plan + decode + CRC of the engine, card against CPU
     mo = torch.full((len(rows),), MAX_BLOCK, dtype=torch.int32, device=DEV)
     kw = dict(out_cap=CAPS.out_cap, max_lit=CAPS.max_lit,
@@ -1137,6 +1196,10 @@ def phase_decode_kernels() -> dict:
         rows_u8 = k_wave.decode_wave(blk, lit_blk, ptr, total, 16)
         B, K, Bs = CAPS.blk_cap, CAPS.out_cap, CAPS.blk_cap + ops.SPEC_PAD
         used = int(total.sum())
+        fields = k_plan.plan_speculative(sb, sn)
+        mo = torch.full((M,), MAX_BLOCK, dtype=torch.int32, device=DEV)
+        lkw = dict(max_lit=CAPS.max_lit, max_match=CAPS.max_match, out_cap=K)
+        nodes = int(fields[0].sum())
         work = {
             # bytes: each input read once, each output written once;
             # operations: the doubling rounds these blocks need (`depth`).
@@ -1158,9 +1221,19 @@ def phase_decode_kernels() -> dict:
                 run=lambda: k_crc.crc32(rows_u8, total),
                 plain=lambda: k_crc.crc32_plain(rows_u8, total),
                 plain_iters=3),
+            # bytes: is_start below n, six fields at each chain node, n and
+            # max_out; out: the status, the total, lit_blk and ptr
+            "plan_layout": dict(
+                bytes=4 * int(sn.sum()) + 6 * 4 * nodes + 8 * M
+                + 4 * (ops.SPEC_STATUS + 1) * M + 8 * M * K,
+                ops=M * K * 4 + nodes * 16,
+                run=lambda: k_layout.plan_layout(*fields, sn, mo, **lkw),
+                plain=lambda: k_layout.plan_layout_plain(*fields, sn, mo, **lkw),
+                plain_iters=3),
         }
         timing[M] = {name: timed(w, name) for name, w in work.items()}
         timing[M]["decode_wave"]["depth_needed"] = depth
+        timing[M]["plan_layout"]["chain_nodes"] = nodes
         # the same launch without rounds (staging and output alone), and
         # random maps, where no round finds a fixed point and all 16 run
         g = torch.from_numpy(rng.integers(0, K, (M, K)).astype(np.int32)).to(DEV)
@@ -1282,7 +1355,7 @@ def read_wide_caps(frame: bytes, data: bytes) -> list:
             st["decode"] = eng.stats.as_dict()
             if key == "card":
                 d = eng.stats.dispatches
-                want = dict(decode_wave=d, plan_speculative=d if pod else 0, crc32=0)
+                want = read_want(d, d if pod else 0, 0)
                 check(d > 0 and launches == want,
                       f"wide caps ({caps}, {pod}): launches {launches}, want {want}")
                 card_launches = launches
@@ -1341,8 +1414,8 @@ def phase_read_full(frame: bytes, data: bytes) -> dict:
         eng = LZ4DecodeEngine(device=DEV, plan_on_device=True, micro_batch=mb)
         for method in ("decode_to_device", "decode"):
             dt, launches, st = one(eng, method, frame, data_dev, data, coded)
-            want = dict(decode_wave=st.dispatches, plan_speculative=st.dispatches,
-                        crc32=st.dispatches if method == "decode_to_device" else 0)
+            want = read_want(st.dispatches, st.dispatches,
+                             st.dispatches if method == "decode_to_device" else 0)
             check(launches == want, f"{method} mb={mb}: launches {launches} "
                   f"for {st.dispatches} dispatches")
             if mb == 8 and method == "decode_to_device":
@@ -1359,8 +1432,7 @@ def phase_read_full(frame: bytes, data: bytes) -> dict:
     eng = LZ4DecodeEngine(device=DEV, plan_on_device=True)
     dt, launches, st = one(eng, "decode_to_device", with_trailer(frame, data),
                            data_dev, data, coded)
-    check(launches == dict(decode_wave=st.dispatches, plan_speculative=st.dispatches,
-                           crc32=st.dispatches + 1),
+    check(launches == read_want(st.dispatches, st.dispatches, st.dispatches + 1),
           f"v5 decode_to_device: launches {launches} for {st.dispatches} dispatches")
     runs.append(dict(plan_on_device=True, micro_batch=8, method="decode_to_device",
                      trailer=True, seconds=dt, output_GB_per_s=len(data) / dt / 1e9,
@@ -1375,8 +1447,8 @@ def phase_read_full(frame: bytes, data: bytes) -> dict:
     for method in ("decode_to_device", "decode"):
         dt, launches, st = one(eng, method, small_frame, data_dev[: len(small)],
                                small, s_coded)
-        want = dict(decode_wave=st.dispatches, plan_speculative=0,
-                    crc32=st.dispatches if method == "decode_to_device" else 0)
+        want = read_want(st.dispatches, 0,
+                         st.dispatches if method == "decode_to_device" else 0)
         check(launches == want, f"host-planned {method}: launches {launches}")
         runs.append(dict(plan_on_device=False, micro_batch=8, method=method,
                          seconds=dt, output_GB_per_s=len(small) / dt / 1e9,
@@ -1795,8 +1867,7 @@ def phase_resilience_small() -> None:
             check(ok(rep), f"{name} (plan_on_device={pod}): {rep.ok=} {rep.lost=} "
                   f"{rep.reconstructed=} {rep.holes=}")
             got = pick(launches, READ_KERNELS)
-            check(d > 0 and got == dict(decode_wave=d, plan_speculative=d if pod else 0,
-                                        crc32=0),
+            check(d > 0 and got == read_want(d, d if pod else 0, 0),
                   f"{name} (plan_on_device={pod}): launches {got} for {d} dispatches")
             check(dataclasses.asdict(rep) == fut.result(),
                   f"{name} (plan_on_device={pod}): the card's SalvageReport differs "
@@ -1867,7 +1938,7 @@ def phase_checkpoint_full(data: bytes) -> None:
         lambda: ckpt.restore(str(root), 1, like, decode_engine=dec), dec)
     got = pick(launches, READ_KERNELS)
     check(step == 1 and trees_same(tree, state), "restore 1: leaves differ")
-    check(d > 0 and got == dict(decode_wave=d, plan_speculative=d, crc32=0),
+    check(d > 0 and got == read_want(d, d, 0),
           f"restore 1: launches {got} for {d} dispatches")
     restored = dict(step=1, seconds=dt, GB_per_s=nbytes / dt / 1e9, dispatches=d,
                     launches=got)
@@ -2013,7 +2084,7 @@ def phase_consumers_small(data: bytes) -> None:
           and all(x._is_view() for x in tree_leaves(restored)),
           "restore_cache(to_device=True): leaves differ, are copies, or content "
           "crossed to the host")
-    check(rd > 0 and res_launches == dict(decode_wave=rd, plan_speculative=rd, crc32=rd),
+    check(rd > 0 and res_launches == read_want(rd, rd, rd),
           f"restore_cache launches {res_launches} for {rd} dispatches")
     # A damaged leaf ("k", leaf 0 in sorted order): salvaged, its block zeroed.
     frame = blob[1][0]["frame"]
@@ -2099,7 +2170,7 @@ def phase_salvage_full(data: bytes) -> None:
     got = pick(launches, READ_KERNELS)
     check(rep.reconstructed == victims and rep.lost == [] and rep.data == data
           and rep.content_crc_ok is True, f"salvage_full: {rep.reconstructed}, {rep.lost}")
-    check(d > 0 and got == dict(decode_wave=d, plan_speculative=d, crc32=0),
+    check(d > 0 and got == read_want(d, d, 0),
           f"salvage_full: launches {got} for {d} dispatches")
     say("salvage_full", bytes=len(data), blocks=n, parity_group=8, victims=victims,
         reconstructed=rep.reconstructed, seconds=dt, output_GB_per_s=len(data) / dt / 1e9,
@@ -2215,8 +2286,7 @@ def phase_fabric_small() -> None:
             dec = LZ4DecodeEngine(mesh=mesh, plan_on_device=on_device)
             out, ddt, dl, (dd,) = counted(lambda: dec.decode(frame), dec)
             read_by_dev, dstats = launches_by_device(READ_KERNEL_MODULES), dec.stats.as_dict()
-            want = dict(decode_wave=S * dd, plan_speculative=S * dd if on_device else 0,
-                        crc32=0)
+            want = read_want(S * dd, S * dd if on_device else 0, 0)
             check(out == data and dec.stats.fallback_blocks == 0,
                   f"mesh {shape}: sharded decode (plan_on_device={on_device})")
             check(pick(dl, READ_KERNELS) == want,
@@ -2339,7 +2409,7 @@ def phase_fabric_full(data: bytes, full_frame: bytes, path_full: dict) -> None:
     dec = LZ4DecodeEngine(mesh=mesh, plan_on_device=True)
     out, ddt, dl, (dd,) = counted(lambda: dec.decode(frame), dec)
     read_by_dev = launches_by_device(READ_KERNEL_MODULES)
-    want = dict(decode_wave=4 * dd, plan_speculative=4 * dd, crc32=0)
+    want = read_want(4 * dd, 4 * dd, 0)
     check(out == data and dec.stats.fallback_blocks == 0, "fabric_full: decode")
     check(dd > 0 and pick(dl, READ_KERNELS) == want,
           f"fabric_full: decode launches {pick(dl, READ_KERNELS)} != {want}")
@@ -2754,7 +2824,7 @@ def phase_train_drill() -> None:
             lambda: ckpt.restore(ckpt_dir, step, like, decode_engine=decode_engine, **kw),
             decode_engine)
         got = pick(launches, READ_KERNELS)
-        check(d > 0 and got == dict(decode_wave=d, plan_speculative=0, crc32=0),
+        check(d > 0 and got == read_want(d, 0, 0),
               f"train_drill restore {step}: launches {got} for {d} dispatches")
         n = state_bytes(out[0])
         calls["restore"].append(dict(step=step, bytes=n, seconds=dt, GB_per_s=n / dt / 1e9,
@@ -3152,6 +3222,9 @@ def main() -> None:
         # no TPU kernel: the lax.scan graph stage _select_sequential
         "window_select": "src/repro/core/jax_compressor.py:196",
         "decode_wave": "src/repro/kernels/decode_wave.py:64",
+        # no TPU kernel: the graph stages plan_speculative (checks, cumsum,
+        # compaction; :294) and decode_gather's span maps and gathers (:216)
+        "plan_layout": "src/repro/kernels/ops.py:294",
         "plan_speculative": "src/repro/kernels/plan_speculative.py:124",
         # no TPU kernel: the lax.scan graph stage crc32_bytes
         "crc32": "src/repro/kernels/ops.py:455",

@@ -18,8 +18,9 @@ copies — and the blocks fan out.  Four executors:
                dispatched before micro-batch i is drained.  With
                ``plan_on_device=True`` the parse moves to the device too
                (`kernels.ops.plan_decode`: the `plan_speculative` kernel,
-               validation and compaction in torch, `decode_wave`, and the
-               `crc32` kernel for verified device restores), so
+               the `plan_layout` kernel (validation and the output layout),
+               `decode_wave`, and the `crc32` kernel for verified device
+               restores), so
                `decode_to_device` moves no content to the host, planning
                included.  Blocks whose plans overflow `DevicePlanCaps`, or
                whose payload exceeds ``blk_cap``, are decoded on the host and
@@ -54,6 +55,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import plan_layout as _k_layout
 
 from .decode_plan import (
     _ERR_MESSAGES,
@@ -304,9 +306,19 @@ class LZ4DecodeEngine:
     def _obs_on(self) -> bool:
         return obs.enabled_for(self.telemetry)
 
-    def _finish_call(self, st: DecodeStats, raw_bytes: int = 0) -> None:
+    @staticmethod
+    def _layout_mark() -> int:
+        """The `plan_layout` kernel's launches so far in this process: taken
+        when a call begins and handed to `_finish_call` as ``layout_from``."""
+        return _k_layout.launches
+
+    def _finish_call(self, st: DecodeStats, raw_bytes: int,
+                     layout_from: int) -> None:
         """Fold the finished call's stats into `totals` + the obs registry;
-        ``raw_bytes`` is the call's raw-passthrough content."""
+        ``raw_bytes`` is the call's raw-passthrough content, ``layout_from``
+        the `_layout_mark()` taken when the call began (its `plan_layout`
+        launches go to counter ``decode.plan_layout_launches``: one a
+        dispatch of `plan_decode` on the card, none on the CPU)."""
         s = st
         s.calls = 1
         with self._totals_lock:
@@ -319,6 +331,9 @@ class LZ4DecodeEngine:
                       "raw-passthrough blocks").inc(s.raw_blocks)
             r.counter("decode.raw_bytes",
                       "raw-passthrough bytes").inc(raw_bytes)
+            r.counter("decode.plan_layout_launches",
+                      "plan_layout kernel launches").inc(
+                _k_layout.launches - layout_from)
             r.counter("decode.bytes_in", "compressed bytes in").inc(s.bytes_in)
             r.counter("decode.bytes_out", "decoded bytes out").inc(s.bytes_out)
             r.counter("decode.dispatches",
@@ -396,13 +411,15 @@ class LZ4DecodeEngine:
             bytes_in=sum(len(p) for p in payloads),
         )
         self.stats = st
+        mark = self._layout_mark()
         try:
             with obs.span_factory(self._obs_on())(
                     "decode.total", blocks=len(payloads),
                     executor=self.executor):
                 return self._decode_blocks_inner(payloads, raws, usizes, st)
         finally:
-            self._finish_call(st, sum(len(p) for p, r in zip(payloads, raws) if r))
+            self._finish_call(st, sum(len(p) for p, r in zip(payloads, raws) if r),
+                              mark)
 
     def _decode_blocks_inner(self, payloads, raws, usizes,
                              st: DecodeStats) -> list[bytes]:
@@ -920,6 +937,7 @@ class LZ4DecodeEngine:
             bytes_in=len(frame),
         )
         self.stats = st
+        mark = self._layout_mark()
         try:
             with obs.span_factory(self._obs_on())(
                     "decode.total", blocks=len(blocks),
@@ -933,7 +951,7 @@ class LZ4DecodeEngine:
             st.bytes_out = len(out)
             return out
         finally:
-            self._finish_call(st, _raw_bytes(blocks))
+            self._finish_call(st, _raw_bytes(blocks), mark)
 
     def decode_to_device(self, frame: bytes, verify: bool = True):
         """Frame -> decoded bytes as ONE uint8 tensor on the engine's device.
@@ -955,6 +973,7 @@ class LZ4DecodeEngine:
             bytes_in=len(frame),
         )
         self.stats = st
+        mark = self._layout_mark()
         try:
             sp = obs.span_factory(self._obs_on())
             with sp("decode.total", blocks=len(blocks), executor="device",
@@ -973,7 +992,7 @@ class LZ4DecodeEngine:
             st.bytes_out = sum(b["usize"] for b in blocks)
             return out
         finally:
-            self._finish_call(st, _raw_bytes(blocks))
+            self._finish_call(st, _raw_bytes(blocks), mark)
 
 
 class FrameReader:

@@ -7,6 +7,8 @@ Kernels (CUDA C++ for sm_90a, sources in `../csrc/`):
   window_select   — the single-match free-pointer scan over the windows;
   decode_wave     — pointer-doubling resolve + byte gather of the read path;
   plan_speculative — a candidate LZ4 header at every offset + chain select;
+  plan_layout     — the chain's checks and status, and decode_wave's source
+                    maps, from the header fields (no plan columns);
   crc32           — CRC-32 of rows of any length (chunks + GF(2) combine);
   fibhash         — word + Fibonacci hash per position (staged compress path);
   match_extend    — bounded match extension given candidates (staged path).

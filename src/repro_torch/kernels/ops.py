@@ -2,10 +2,13 @@
 
 Counterpart of the JAX package's `kernels/ops.py`.  The prefix-sum /
 scatter layout stages that the reference leaves to XLA stay stock torch ops
-here (`torch.cummax`, `torch.cumsum`, `scatter_reduce_`);
-the kernels proper are reached through their wrappers, which launch the
-CUDA kernel for tensors on the card and run the plain version for tensors
-on the CPU.  Everything is batched over a leading ``M`` axis.
+here (`torch.cummax`, `torch.cumsum`, `scatter_reduce_`), except on the
+read path's fused `plan_decode`, where the `plan_layout` kernel takes the
+place of `plan_speculative`'s validation and compaction and of
+`_decode_layout`; the kernels proper are reached through their wrappers,
+which launch the CUDA kernel for tensors on the card and run the plain
+version for tensors on the CPU.  Everything is batched over a leading ``M``
+axis.
 """
 from __future__ import annotations
 
@@ -20,7 +23,17 @@ from .emit_scatter import emit_scatter
 from .fibhash import fibhash
 from .fused_compress import fused_compress
 from .match_extend import match_extend
+from .plan_layout import plan_layout
 from .plan_speculative import plan_speculative as plan_fields
+from .ref import (  # noqa: F401  (the status lanes, re-exported)
+    SPEC_ERR,
+    SPEC_ERR_MISSING_TOKEN,
+    SPEC_N_LIT,
+    SPEC_N_MATCH,
+    SPEC_OUT_SIZE,
+    SPEC_OVERFLOW,
+    SPEC_STATUS,
+)
 
 
 def hash_positions(blocks_u8, hash_bits: int = 8, positions: int | None = None):
@@ -252,14 +265,6 @@ def _decode_layout(lit_src, lit_dst, lit_len, match_dst, match_off, n_lit,
 # payload.
 SPEC_PAD = 128
 
-# Lanes of the (M, SPEC_STATUS) int32 status returned per block.
-SPEC_ERR, SPEC_N_LIT, SPEC_N_MATCH, SPEC_OUT_SIZE, SPEC_OVERFLOW = range(5)
-SPEC_STATUS = 5
-
-# Error codes 1..8 are `core.decode_plan._ERR_MESSAGES`; 9 is the serial
-# parser's "truncated block: missing token" (no valid final sequence).
-SPEC_ERR_MISSING_TOKEN = 9
-
 
 def _compact(mask, values, cap: int):
     """Scatter ``values`` where ``mask`` holds to ordinal slots 0, 1, ... of
@@ -290,7 +295,10 @@ def plan_speculative(blk_u8, n, max_out, max_lit: int = 8448,
     with the host planner's error codes (per header the lowest failing
     check, across headers the first bad one), lays out output offsets with
     a cumsum, and compacts the headers into fixed-shape plan columns with
-    one scatter per column.
+    one scatter per column.  `plan_decode` no longer runs it (the
+    `plan_layout` kernel lays out the output with no plan columns); it
+    stays as the plan-column form of the JAX package's op, which the tests
+    hold both to the reference and to `plan_layout`.
 
     blk_u8  : (M, B) uint8 payloads zeroed past n; B > every n (pad with
               `SPEC_PAD`)
@@ -368,25 +376,27 @@ def plan_decode(blk_u8, n, max_out, out_cap: int, max_lit: int,
                 max_match: int, rounds: int, compute_crc: bool = True):
     """Fused plan + execute (+ CRC) for a micro-batch, all on the device.
 
-    `plan_speculative` into `decode_gather` (and `crc32_bytes` when
-    `compute_crc`): compressed payloads in, decoded rows out, with no host
-    parse.  Rows whose status carries an error or a caps overflow decode to
-    zeros (the caller raises or falls back from the status).
+    Four kernels: `plan_speculative` (the header at every offset and the
+    chain), `plan_layout` (the chain's checks, status and `decode_wave`'s
+    source maps), `decode_wave` and, when `compute_crc`, `crc32`:
+    compressed payloads in, decoded rows out, with no host parse and no
+    stock op between the kernels.  The result equals `plan_speculative`
+    below followed by `decode_gather`.  Rows whose status carries an error
+    or a caps overflow decode to zeros (the caller raises or falls back
+    from the status).
 
     Returns ``(out, status, crc)``: (M, out_cap) uint8 decoded rows, the
     (M, SPEC_STATUS) int32 status and (M,) int64 CRC-32 of each decoded row
     (zeros when `compute_crc` is off).
     """
-    (lit_src, lit_dst, lit_len, match_dst, match_off, _match_len,
-     status) = plan_speculative(blk_u8, n, max_out, max_lit=max_lit,
-                                max_match=max_match, out_cap=out_cap)
-    ok = (status[:, SPEC_ERR] == 0) & (status[:, SPEC_OVERFLOW] == 0)
-    out_size = torch.where(ok, status[:, SPEC_OUT_SIZE],
-                           torch.zeros_like(status[:, SPEC_OUT_SIZE]))
-    out = decode_gather(blk_u8, lit_src, lit_dst, lit_len, match_dst,
-                        match_off, status[:, SPEC_N_LIT], status[:, SPEC_N_MATCH],
-                        out_size, out_cap=out_cap, rounds=rounds)
-    crc = crc32_bytes(out, out_size) if compute_crc else torch.zeros(
+    blk_u8 = blk_u8.contiguous()
+    n = n.to(torch.int32).contiguous()
+    max_out = max_out.to(torch.int32).contiguous()
+    status, total, lit_blk, ptr = plan_layout(
+        *plan_fields(blk_u8, n), n, max_out, max_lit=max_lit,
+        max_match=max_match, out_cap=out_cap)
+    out = decode_wave(blk_u8, lit_blk, ptr, total, rounds)
+    crc = crc32(out, total) if compute_crc else torch.zeros(
         (out.shape[0],), dtype=torch.int64, device=out.device)
     return out, status, crc
 

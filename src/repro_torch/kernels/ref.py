@@ -385,6 +385,107 @@ def plan_fields_ref(block, n, chain_rounds: int = 16):
     return is_start, lit_start, lit_len, ls_end, off, mlen, flags
 
 
+# Lanes of the (M, SPEC_STATUS) int32 plan status (`ops.SPEC_*` re-exports
+# them): the error code (1..8 are `core.decode_plan._ERR_MESSAGES`, 9 the
+# serial parser's "truncated block: missing token"), the uncapped
+# literal-run and match counts, the decoded size, the overflow flag (a count
+# past its cap or the size past out_cap).
+SPEC_ERR, SPEC_N_LIT, SPEC_N_MATCH, SPEC_OUT_SIZE, SPEC_OVERFLOW = range(5)
+SPEC_STATUS = 5
+SPEC_ERR_MISSING_TOKEN = 9
+
+
+def plan_layout_ref(is_start, lit_start, lit_len, ls_end, off, mlen, flags,
+                    n, max_out, max_lit: int, max_match: int, out_cap: int):
+    """Chain validation + per-output-byte source maps, straight from the
+    header fields.
+
+    The plain version of `csrc/plan_layout.cu`.  It takes the seven (M, B)
+    int32 rows of `plan_fields_ref` (the header at every offset, ``is_start``
+    marking the chain from offset 0) with n and max_out (M,) int32, and
+    gives what `ops.plan_speculative` followed by `ops._decode_layout`
+    gives, without plan columns.  Chain node x (``is_start`` and x < n)
+    emits ``ll = lit_len`` literal bytes at output offset ``prev_total``
+    (the int32 sum of the nodes before it) and, unless it is the final node
+    (``ls_end == n``), ``mlen`` match bytes right after them.  A chain whose
+    checks pass tiles [0, out_size) with these ranges, so the node covering
+    output byte k is the last offset whose ``prev_total`` is at most k (a
+    search over the non-decreasing running sum, no compaction and no span
+    maps).  The checks are the host planner's, in its order, at each node;
+    across nodes the lowest offset's code wins.
+
+    Returns ``(status, total, lit_blk, ptr)``: the (M, SPEC_STATUS) int32
+    status, equal to `ops.plan_speculative`'s lane for lane (sums wrap as
+    int32 there and here); the (M,) int32 decode total (out_size where the
+    row is clean: no error and no overflow; else 0); and `decode_wave`'s
+    (M, out_cap) int32 inputs.  Below a clean row's out_size, a literal
+    byte k has ``lit_blk = lit_start + (k - prev_total)``, ``ptr = k``, a
+    match byte ``ptr = clamp(k - off, 0, out_cap - 1)``, ``lit_blk = 0``;
+    everywhere else ``ptr = k``, ``lit_blk = 0`` (all of an unclean row).
+
+    ``is_start`` is read below n only: `plan_fields_ref` leaves it 0 from n
+    on, so this equals the stock chain, which reads it everywhere.
+    """
+    M, B = is_start.shape
+    dev = is_start.device
+    n = n.to(torch.int32)
+    n1 = n[:, None]
+    max_out = max_out.to(torch.int32)[:, None]
+    idx = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+    started = (is_start > 0) & (idx < n1)
+    nonfinal = ls_end != n1
+    zero = torch.zeros_like(lit_len)
+    ll = torch.where(started, lit_len, zero)
+    ml = torch.where(started & nonfinal, mlen, zero)
+    contrib = ll + ml
+    cum = torch.cumsum(contrib, dim=1, dtype=torch.int32)
+    prev_total = cum - contrib
+    before_match = prev_total + ll
+    out_size = cum[:, -1]
+
+    err = torch.zeros_like(lit_len)
+    checks = (
+        ((flags & 1) > 0, 1),                              # truncated lit len
+        (ls_end > n1, 2),                                  # truncated literals
+        (prev_total + lit_len > max_out, 3),               # output exceeds limit
+        (nonfinal & (ls_end + 2 > n1), 4),                 # truncated offset
+        (nonfinal & (off == 0), 5),                        # zero offset
+        (nonfinal & (off > before_match), 6),              # offset beyond output
+        (nonfinal & ((flags & 2) > 0), 7),                 # truncated match len
+        (nonfinal & (before_match + mlen > max_out), 8),   # exceeds limit
+    )
+    for cond, code in reversed(checks):   # the lowest failing check wins
+        err = torch.where(started & cond, torch.full_like(err, code), err)
+    pos = torch.where(err > 0, idx.to(torch.int64), B)
+    first = pos.min(dim=1).values
+    code = torch.gather(err, 1, first.clamp(max=B - 1)[:, None])[:, 0]
+    final_ok = (started & ~nonfinal).any(dim=1)
+    code = torch.where(first < B, code,
+                       torch.where(final_ok, 0, SPEC_ERR_MISSING_TOKEN))
+    code = code.to(torch.int32)
+    n_lit = (started & (lit_len > 0)).sum(dim=1, dtype=torch.int32)
+    n_match = (started & nonfinal).sum(dim=1, dtype=torch.int32)
+    overflow = (n_lit > max_lit) | (n_match > max_match) | (out_size > out_cap)
+    status = torch.stack([code, n_lit, n_match, out_size,
+                          overflow.to(torch.int32)], dim=1)
+    total = torch.where((code == 0) & ~overflow, out_size,
+                        torch.zeros_like(out_size))
+
+    k = torch.arange(out_cap, dtype=torch.int32, device=dev)[None, :]
+    cover = torch.searchsorted(prev_total.contiguous(),
+                               k.expand(M, out_cap).contiguous(), right=True) - 1
+    cover = cover.clamp(0, B - 1)
+    S = torch.gather(prev_total, 1, cover)
+    is_lit = k - S < torch.gather(lit_len, 1, cover)
+    inside = k < total[:, None]
+    lit_blk = torch.where(inside & is_lit,
+                          torch.gather(lit_start, 1, cover) + (k - S), 0)
+    ptr = torch.where(inside & ~is_lit,
+                      (k - torch.gather(off, 1, cover)).clamp(0, out_cap - 1), k)
+    return (status, total.to(torch.int32), lit_blk.to(torch.int32).contiguous(),
+            ptr.to(torch.int32).contiguous())
+
+
 # CRC-32 (IEEE 802.3, reflected; zlib's and binascii's) ------------------------
 
 CRC_POLY = 0xEDB88320

@@ -211,6 +211,7 @@ def salvage_frame(frame: bytes, engine=None) -> SalvageReport:
     from repro_torch.core.frame import block_crc, scan_frame
 
     eng = engine or default_decode_engine()
+    mark = eng._layout_mark()
     ob = eng._obs_on()
     sp = obs.span_factory(ob)
     with sp("salvage.total", bytes_in=len(frame)):
@@ -280,7 +281,7 @@ def salvage_frame(frame: bytes, engine=None) -> SalvageReport:
             r.counter("resilience.lost_blocks",
                       "blocks salvage could not recover").inc(len(lost))
         st.bytes_out = len(data)
-        eng._finish_call(st)
+        eng._finish_call(st, 0, mark)
         return SalvageReport(
             data=data, block_count=info["block_count"], ok=ok,
             reconstructed=sorted(rebuilt), lost=lost, holes=merged,

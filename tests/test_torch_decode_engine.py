@@ -336,10 +336,11 @@ def test_refusals_and_keyword_mapping():
 
 
 # Spans and counters of the port's decode host loop that the reference does
-# not have (every config decodes the frame's raw block to the device once).
+# not have (every config decodes the frame's raw block to the device once;
+# the `plan_layout` kernel's launches are counted in every config, 0 here).
 PORT_ONLY_SPANS = {"decode.split", "decode.stack", "decode.upload",
                    "decode.wait", "decode.finish", "decode.join", "decode.raw"}
-PORT_ONLY_COUNTERS = {"decode.raw_bytes"}
+PORT_ONLY_COUNTERS = {"decode.raw_bytes", "decode.plan_layout_launches"}
 
 
 @pytest.mark.parametrize("config", ["serial", "device", "device_plan_on_device"])

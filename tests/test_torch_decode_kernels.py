@@ -9,7 +9,11 @@ against the JAX package on the same seeded numpy inputs (tolerance zero):
     mode (``use_pallas=True``);
   * error-code parity on truncation and interior-flip sweeps, a stream
     whose sums wrap int32 after its first bad header, and `lit_blk`
-    values out of range within `total`.
+    values out of range within `total`;
+  * `ref.plan_layout_ref` (the plain version of the `plan_layout` kernel),
+    `ops.plan_decode`'s CPU path and the stock chain it replaced
+    (`ops.plan_speculative` -> `ops._decode_layout` -> `decode_wave`) on
+    the same rows, and the `plan_layout` wrapper's checks and counters.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by `chip_smoke.py` (phase `decode_kernels_check`).
@@ -33,10 +37,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import crc32 as kcrc
 from repro_torch.kernels import decode_wave as kwave
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import plan_layout as klayout
 from repro_torch.kernels import plan_speculative as kplan
 from repro_torch.kernels import ref as tref
 
-from test_torch_util import MAX_BLOCK, block_corpus, lying_corpus, rng
+from test_torch_util import MAX_BLOCK, adversarial_corpus, block_corpus, lying_corpus, rng
 
 CAPS = tplan.DevicePlanCaps()
 B_SPEC = CAPS.blk_cap + tops.SPEC_PAD
@@ -397,3 +402,201 @@ def test_wrappers_check_their_inputs():
         kcrc.crc32(meta, n.to("meta"))
     with pytest.raises(RuntimeError, match="unsupported device"):
         kplan.plan_speculative(meta, n.to("meta"))
+
+
+# -- plan_layout: the plain version against the stock chain it replaced --------
+
+def literal_block(data: bytes) -> bytes:
+    """A valid block of one literals-only (final) sequence, of any length."""
+    v = len(data)
+    head = bytes([0xF0]) + b"\xff" * ((v - 15) // 255) + bytes([(v - 15) % 255]) \
+        if v >= 15 else bytes([v << 4])
+    return head + data
+
+
+def compressed_blocks(hash_bits: int) -> list[bytes]:
+    """Blocks of the benchmark's two configurations' compressor (max_match
+    36, pws 8; 256 or 4096 hash entries) over text, RLE runs and zeros."""
+    from repro_torch import LZ4Engine
+
+    a = adversarial_corpus()
+    data = (a["text"] + a["rle_runs"] + a["low_entropy"])[: MAX_BLOCK + 9000] \
+        + b"\x00" * 30000
+    eng = LZ4Engine(device="cpu", hash_bits=hash_bits, max_match=36, pws=8,
+                    candidate_impl="sortkey", scan_impl="associative")
+    return eng.compress_to_blocks(data)
+
+
+def error_rows() -> list[tuple[bytes, int]]:
+    """(payload, max_out) rows whose first failing check is each of 1..9."""
+    fin = b"\x10B"
+    return [(b, mo) for b, mo in lying_corpus().values()] + [
+        (b"\xf0\xff\xff\xff", MAX_BLOCK),            # 1 truncated literal length
+        (b"\x50AB", MAX_BLOCK),                        # 2 literals past the end
+        (b"\x10A\x01", MAX_BLOCK),                     # 4 truncated offset
+        (b"\x1fA\x01\x00\xff", MAX_BLOCK),             # 7 truncated match length
+        (b"\x40ABCD", 3),                              # 3 output past max_out
+        (b"\x1fA\x01\x00\x20" + fin, 10),               # 8 match past max_out
+    ]
+
+
+def layout_case(name: str):
+    """(payloads, max_outs, width, max_lit, max_match, out_cap) of a case."""
+    corpus = block_corpus()
+    valid = [corpus[k] for k in ("cmp_text", "cmp_mixed", "zeros", "rle_529",
+                                 "final_ext", "lit_text", "lit_empty")]
+    if name == "valid_lz4_paper":
+        rows = compressed_blocks(8) + valid
+    elif name == "valid_lz4_paper_4k":
+        rows = compressed_blocks(12)
+    elif name == "errors_1_to_9":
+        pairs = error_rows()
+        return ([b for b, _ in pairs], [m for _, m in pairs], B_SPEC,
+                CAPS.max_lit, CAPS.max_match, CAPS.out_cap)
+    elif name == "overflow_lit":
+        return valid, [MAX_BLOCK] * len(valid), B_SPEC, 40, CAPS.max_match, CAPS.out_cap
+    elif name == "overflow_match":
+        return valid, [MAX_BLOCK] * len(valid), B_SPEC, CAPS.max_lit, 40, CAPS.out_cap
+    elif name == "overflow_out_size":
+        return valid, [MAX_BLOCK] * len(valid), B_SPEC, CAPS.max_lit, \
+            CAPS.max_match, 4096
+    elif name == "pow2_padding":
+        rows = valid[:3] + [b""] * 5
+    elif name == "wrapping_sums":
+        hdr = b"\x0f\x01\x00" + b"\xff" * 4_300_000 + b"\x07"
+        rows = [b"\x10A\x00\x00" + hdr + hdr + b"\x10B", corpus["cmp_text"]]
+        width = len(rows[0]) + tops.SPEC_PAD
+        return rows, [MAX_BLOCK] * 2, width, 8, 8, CAPS.out_cap
+    elif name == "wide":
+        noise = rng(61).integers(0, 256, 90_000, np.uint8).tobytes()
+        rows = [literal_block(noise), corpus["cmp_text"], corpus["zeros"]]
+        return rows, [131072] * 3, 98_304 + tops.SPEC_PAD, CAPS.max_lit, \
+            CAPS.max_match, 131072
+    else:
+        raise KeyError(name)
+    return rows, [MAX_BLOCK] * len(rows), B_SPEC, CAPS.max_lit, \
+        CAPS.max_match, CAPS.out_cap
+
+
+LAYOUT_CASES = ["valid_lz4_paper", "valid_lz4_paper_4k", "errors_1_to_9",
+                "overflow_lit", "overflow_match", "overflow_out_size",
+                "pow2_padding", "wrapping_sums", "wide"]
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES)
+def test_plan_layout_plain_equals_the_stock_chain(case):
+    """The plain version of the `plan_layout` kernel, `ops.plan_decode`'s
+    CPU path and the stock chain it replaced give the same status lanes,
+    the same `lit_blk` and `ptr` below each clean row's size, and the same
+    decoded rows and CRCs."""
+    payloads, max_outs, width, max_lit, max_match, out_cap = layout_case(case)
+    buf, ns = stack_payloads(payloads, width)
+    blk, n, mo = torch.from_numpy(buf), t32(ns), t32(max_outs)
+    caps = dict(max_lit=max_lit, max_match=max_match, out_cap=out_cap)
+    fields = tref.plan_fields_ref(blk, n)
+    before = klayout.launches
+    status, total, lit_blk, ptr = klayout.plan_layout(*fields, n, mo, **caps)
+    assert klayout.launches == before           # the CPU path launches nothing
+    for a, b in zip((status, total, lit_blk, ptr),
+                    tref.plan_layout_ref(*fields, n, mo, **caps)):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+
+    *cols, s_status = tops.plan_speculative(blk, n, mo, **caps)
+    assert torch.equal(status, s_status)
+    ok = (s_status[:, tops.SPEC_ERR] == 0) & (s_status[:, tops.SPEC_OVERFLOW] == 0)
+    s_total = torch.where(ok, s_status[:, tops.SPEC_OUT_SIZE], 0).to(torch.int32)
+    assert torch.equal(total, s_total)
+    s_lit_blk, s_ptr = tops._decode_layout(
+        *cols[:5], s_status[:, tops.SPEC_N_LIT], s_status[:, tops.SPEC_N_MATCH],
+        s_total, out_cap)
+    k = torch.arange(out_cap)[None, :]
+    below = k < total[:, None]
+    assert torch.equal(lit_blk[below], s_lit_blk[below])
+    assert torch.equal(ptr[below], s_ptr[below])
+    assert torch.equal(lit_blk[~below], torch.zeros_like(lit_blk[~below]))
+    assert torch.equal(ptr[~below], k.expand_as(ptr)[~below])
+
+    rounds = tplan.MAX_RESOLVE_ROUNDS
+    stock = tref.decode_gather_ref(blk, s_lit_blk, s_ptr, s_total, rounds)
+    assert torch.equal(tref.decode_gather_ref(blk, lit_blk, ptr, total, rounds), stock)
+    out, pd_status, crc = tops.plan_decode(blk, n, mo, rounds=rounds, **caps)
+    assert torch.equal(out, stock) and torch.equal(pd_status, status)
+    assert crc.tolist() == [binascii.crc32(stock[j, : max(int(t), 0)].numpy().tobytes())
+                            for j, t in enumerate(total)]
+
+    codes = set(status[:, tops.SPEC_ERR].tolist())
+    over = status[:, tops.SPEC_OVERFLOW].tolist()
+    if case.startswith("valid") or case == "wide":
+        assert codes == {0} and not any(over)
+        for j, p in enumerate(payloads):
+            data = tplan.decode_block_planned(p, max_outs[j])
+            assert out[j, : len(data)].numpy().tobytes() == data
+    elif case == "errors_1_to_9":
+        assert codes == set(range(1, 10)) and int(total.abs().sum()) == 0
+    elif case.startswith("overflow"):
+        assert any(over) and codes == {0}
+    elif case == "pow2_padding":
+        assert status[3:, tops.SPEC_ERR].tolist() == [tops.SPEC_ERR_MISSING_TOKEN] * 5
+    elif case == "wrapping_sums":
+        assert status[0, tops.SPEC_ERR] == 5 and status[0, tops.SPEC_OUT_SIZE] < 0
+    if case == "wide":
+        assert int(total[0]) == 90_000
+
+
+def test_plan_layout_wrapper_checks_its_inputs():
+    f = torch.zeros((2, 8), dtype=torch.int32)
+    n = torch.zeros((2,), dtype=torch.int32)
+    caps = dict(max_lit=4, max_match=4, out_cap=16)
+    fields = [f.clone() for _ in range(7)]
+    with pytest.raises(TypeError):
+        klayout.plan_layout(*fields, n.to(torch.int64), n, **caps)
+    with pytest.raises(TypeError):
+        klayout.plan_layout(f.to(torch.int16), *fields[1:], n, n, **caps)
+    with pytest.raises(ValueError):
+        klayout.plan_layout(*fields[:6], f[:, :4], n, n, **caps)
+    with pytest.raises(ValueError):
+        klayout.plan_layout(*fields, n[:1], n[:1], **caps)
+    with pytest.raises(ValueError):
+        klayout.plan_layout(*fields, n, n, max_lit=4, max_match=4, out_cap=0)
+    wide = torch.zeros((2, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="contiguous"):
+        klayout.plan_layout(wide[:, ::2], *fields[1:], n, n, **caps)
+    meta = [x.to("meta") for x in fields]
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        klayout.plan_layout(*meta, n.to("meta"), n.to("meta"), **caps)
+    before = klayout.launches
+    status, total, lit_blk, ptr = klayout.plan_layout(*fields, n, n, **caps)
+    assert klayout.launches == before
+    assert status[:, tops.SPEC_ERR].tolist() == [tops.SPEC_ERR_MISSING_TOKEN] * 2
+    assert not total.any() and not lit_blk.any()
+    assert torch.equal(ptr, torch.arange(16, dtype=torch.int32).expand(2, 16))
+
+
+def test_plan_layout_launches_reach_the_registry(monkeypatch):
+    """On the card each dispatch of `plan_decode` launches `plan_layout`
+    once and the engine folds the call's launches into counter
+    ``decode.plan_layout_launches``.  Here a launch is faked: the CPU path
+    counted as one."""
+    from repro_torch import LZ4DecodeEngine, LZ4Engine, obs
+
+    real = klayout.plan_layout
+
+    def counted(*a, **kw):
+        klayout.launches += 1
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tops, "plan_layout", counted)
+    frame = LZ4Engine(device="cpu", scan_impl="associative").compress(
+        block_corpus()["lit_text"] * 3)
+    eng = LZ4DecodeEngine(device="cpu", plan_on_device=True, micro_batch=1,
+                          telemetry=True)
+    obs.reset()
+    try:
+        eng.decode_to_device(frame)
+        host = LZ4DecodeEngine(device="cpu", telemetry=True)
+        host.decode(frame)      # host plans: no plan_layout launch
+        counters = obs.snapshot()["metrics"]["counters"]
+    finally:
+        obs.reset()
+    assert eng.stats.dispatches >= 2 and host.stats.dispatches >= 1
+    assert counters["decode.plan_layout_launches"] == eng.stats.dispatches

@@ -121,7 +121,7 @@ def test_kernel_sources_and_build_plan():
 
     assert _build.KERNEL_SOURCES == (
         "fused_compress", "emit_scatter", "window_select", "decode_wave",
-        "plan_speculative", "crc32", "fibhash", "match_extend")
+        "plan_speculative", "crc32", "fibhash", "match_extend", "plan_layout")
     for name in _build.KERNEL_SOURCES:
         src = _build.CSRC / f"{name}.cu"
         assert src.is_file(), src
